@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from webgl_raytracer_tpu_torch.env import EnvironmentController
 from webgl_raytracer_tpu_torch.ops import trace as T
 from webgl_raytracer_tpu_torch.render import Renderer
 from webgl_raytracer_tpu_torch.scene import (compile_scene, molecule_geometry,
@@ -32,11 +33,24 @@ def device():
     return torch.device("cuda", 0)
 
 
+def _compile(name, device):
+    if name == "spheres400":
+        return compile_scene(random_sphere_geometry(400, seed=11), device=device)
+    if name == "spheres20k":
+        return compile_scene(random_sphere_geometry(20000, seed=11), device=device)
+    return compile_scene(molecule_geometry("caffeine"), tri_verts=TRIS, device=device)
+
+
 @pytest.fixture(scope="module", params=["spheres400", "caffeine+tris"])
 def scene(request, device):
-    if request.param == "spheres400":
-        return compile_scene(random_sphere_geometry(400, seed=11), device=device)
-    return compile_scene(molecule_geometry("caffeine"), tri_verts=TRIS, device=device)
+    return _compile(request.param, device)
+
+
+@pytest.fixture(scope="module", params=["spheres400", "caffeine+tris", "spheres20k"])
+def any_scene(request, device):
+    """Scenes for the per-ray kernels: spheres20k has more than 128
+    clusters (the two-level walk)."""
+    return _compile(request.param, device)
 
 
 def _fan(n, seed, device, spread=0.05):
@@ -60,12 +74,12 @@ def _fan(n, seed, device, spread=0.05):
                          ids=["noclip", "clip"])
 def test_trace_closest_kernel_matches_plain(scene, device, clip):
     o3, d3s, acts, tmin = _fan(1 << 16, 13, device)
-    before = T.trace_closest.launches
+    before = T.launches["trace_closest"]
     tk, rk = T.trace_closest(scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
-    assert T.trace_closest.launches == before + 1
+    assert T.launches["trace_closest"] == before + 1
     tp, rp = T.trace_closest(scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
                              impl="plain")
-    assert T.trace_closest.launches == before + 1
+    assert T.launches["trace_closest"] == before + 1
     assert int((rk >= 0).sum()) > 100
     assert torch.equal(rk, rp)
     assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
@@ -90,5 +104,58 @@ def test_frame_kernel_matches_plain(scene, device):
         r = Renderer(scene, width=96, height=64, device=device, impl=impl)
         r.render_frames(2)
         images.append(r._accum)
+    assert torch.equal(images[0], images[1])
+    assert float(images[0].mean()) > 0.0
+
+
+@pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
+                         ids=["noclip", "clip"])
+def test_trace_any_kernels_match_plain(any_scene, device, clip):
+    """trace_any and trace_any_perray: kernel == plain == each other."""
+    o3, d3s, acts, tmin = _fan(1 << 16, 19, device, spread=1.0)
+    kw = dict(t_max=25.0, accept_min=torch.full_like(tmin, 0.01), clip=clip,
+              active=acts[0])
+    before = dict(T.launches)
+    bk = T.trace_any(any_scene, o3, d3s[0], tmin, **kw)
+    pk = T.trace_any(any_scene, o3, d3s[0], tmin, perray=True, **kw)
+    assert T.launches["trace_any"] == before["trace_any"] + 1
+    assert T.launches["trace_any_perray"] == before["trace_any_perray"] + 1
+    bp = T.trace_any(any_scene, o3, d3s[0], tmin, impl="plain", **kw)
+    pp = T.trace_any(any_scene, o3, d3s[0], tmin, perray=True, impl="plain", **kw)
+    assert int(bk.sum()) > 100
+    assert torch.equal(bk, bp) and torch.equal(pk, pp) and torch.equal(bk, pk)
+
+
+@pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
+                         ids=["noclip", "clip"])
+def test_trace_closest_perray_kernel_matches_plain_and_block(any_scene, device, clip):
+    o3, d3s, acts, tmin = _fan(1 << 16, 23, device, spread=1.0)
+    before = T.launches["trace_closest_perray"]
+    tk, rk = T.trace_closest(any_scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
+                             perray=True)
+    assert T.launches["trace_closest_perray"] == before + 1
+    tp, rp = T.trace_closest(any_scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
+                             perray=True, impl="plain")
+    tb, rb = T.trace_closest(any_scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+    assert int((rk >= 0).sum()) > 100
+    for t, r in ((tp, rp), (tb, rb)):
+        assert torch.equal(rk, r)
+        assert torch.equal(tk.view(torch.int32), t.view(torch.int32))
+
+
+def test_sky_frame_kernel_matches_plain(device):
+    """A sky-lit 10k-sphere frame runs the per-ray kernels and equals the
+    plain-traced frame."""
+    scene = compile_scene(random_sphere_geometry(10000), device=device)
+    env = EnvironmentController(device=device).load_analytic_sky(width=128, height=64)
+    images = []
+    before = dict(T.launches)
+    for impl in (None, "plain"):
+        r = Renderer(scene, env=env, width=64, height=48, device=device, impl=impl)
+        r.settings.env_intensity = 0.4
+        r.render_frames(2)
+        images.append(r._accum)
+    assert T.launches["trace_closest_perray"] > before["trace_closest_perray"]
+    assert T.launches["trace_any_perray"] > before["trace_any_perray"]
     assert torch.equal(images[0], images[1])
     assert float(images[0].mean()) > 0.0

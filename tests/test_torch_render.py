@@ -27,15 +27,28 @@ import pytest
 import torch
 
 from bench import random_sphere_geometry as bench_spheres
+from webgl_raytracer_tpu.env import generate_analytic_sky, load_hdr, make_env_buffers
 from webgl_raytracer_tpu.models import get_builtin_molecule, molecule_to_geometry
 from webgl_raytracer_tpu.render import Renderer as JRenderer
 from webgl_raytracer_tpu.render import integrator as JI
 from webgl_raytracer_tpu.render.config import split_settings as j_split
 from webgl_raytracer_tpu.render.lights import light_dirs_for_camera as j_lights
 from webgl_raytracer_tpu.scene import compile_scene as j_compile
+from webgl_raytracer_tpu_torch.env import env_from_numpy
 from webgl_raytracer_tpu_torch.render import Renderer, StaticFlags
 from webgl_raytracer_tpu_torch.render import integrator as PI
 from webgl_raytracer_tpu_torch.scene.compile import numpy_fields, scene_from_numpy
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Parallel test workers share the machine's cores: torch's intra-op
+    threads would oversubscribe them, and the many small tensor ops here
+    run fastest on one thread. The setting is process-wide, so the
+    previous value comes back after this module."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,18 +57,36 @@ TRIS = np.array([[[-4, -3.0, -4], [4, -3.0, -4], [0, -3.0, 4]],
                  [[-4, 3.0, -4], [0, 3.0, 4], [4, 3.0, -4]]], np.float32)
 
 
-def _pair(geo, width, height, tri_verts=None, **settings):
+def _env(kind):
+    """(JAX EnvBuffers, the port's copy with the same CDFs) or (None, None):
+    kind "sky WxH" bakes the default analytic sky at that size, anything
+    else names an HDR under assets/env/."""
+    if kind is None:
+        return None, None
+    if kind.startswith("sky"):
+        w, h = (int(x) for x in kind.split()[1].split("x"))
+        img = generate_analytic_sky(width=w, height=h)["data"]
+    else:
+        img = load_hdr(os.path.join(REPO, "assets", "env", kind))["data"]
+    je = make_env_buffers(img)
+    fields = {f.name: np.asarray(getattr(je, f.name)) for f in dataclasses.fields(je)}
+    return je, env_from_numpy(fields, device="cpu")
+
+
+def _pair(geo, width, height, tri_verts=None, env=None, **settings):
     """(JAX renderer, flags, uniforms, px, py) and the port's renderer and
-    frame inputs for the same scene and settings."""
+    frame inputs for the same scene, environment and settings."""
     js = j_compile(geo, tri_verts=tri_verts)
-    jr = JRenderer(js, width=width, height=height)
-    pr = Renderer(scene_from_numpy(numpy_fields(js)), width=width, height=height)
+    je, pe = _env(env)
+    jr = JRenderer(js, env=je, width=width, height=height)
+    pr = Renderer(scene_from_numpy(numpy_fields(js), device="cpu"), env=pe,
+                  width=width, height=height, device="cpu")
     for k, v in settings.items():
         setattr(jr.settings, k, v)
         setattr(pr.settings, k, v)
     basis = jr.camera.basis()
     jflags, ju = j_split(jr.settings, basis, j_lights(jr.settings.lights, basis),
-                         has_env=False, has_volume=False,
+                         has_env=je is not None, has_volume=False,
                          clip=jr.active_clip_plane(basis))
     jx, jy = jr._pixel_grids()
     return (jr, jflags, ju, jx, jy), (pr, *pr.frame_inputs())
@@ -86,6 +117,11 @@ FRAMES = [
     ("caffeine+tris 40x32 clip plane",
      lambda: molecule_to_geometry(get_builtin_molecule("caffeine")), 40, 32,
      {"tri_verts": TRIS, "clip_enabled": True, "clip_distance": 14.0}),
+    ("spheres1000 64x48 sky 64x32", lambda: bench_spheres(1000), 64, 48,
+     {"env": "sky 64x32", "env_intensity": 0.4}),
+    ("caffeine 48x32 sunny_sky_256x128.hdr",
+     lambda: molecule_to_geometry(get_builtin_molecule("caffeine")), 48, 32,
+     {"env": "sunny_sky_256x128.hdr"}),
 ]
 
 
@@ -93,10 +129,11 @@ FRAMES = [
 def test_frame_matches_jax(case):
     _, geo, w, h, settings = case
     (jr, jf, ju, jx, jy), (pr, pf, pu, px, py) = _pair(geo(), w, h, **settings)
+    assert pf.use_env == jf.use_env == (jr.env is not None)
     with jax.disable_jit():
-        jc, (jn, jo) = JI.render_batch_stats(jr.scene, None, None, jf, ju, jx, jy,
+        jc, (jn, jo) = JI.render_batch_stats(jr.scene, jr.env, None, jf, ju, jx, jy,
                                              jnp.uint32(0))
-    pc, (pn, po) = PI.render_batch_stats(pr.scene, pf, pu, px, py, 0)
+    pc, (pn, po) = PI.render_batch_stats(pr.scene, pf, pu, px, py, 0, env=pr.env)
     jc, pc = np.asarray(jc), pc.numpy()
     assert np.isfinite(pc).all() and pc.mean() > 0
 
@@ -108,13 +145,15 @@ def test_frame_matches_jax(case):
     bounces = pf.max_bounces
     assert abs(int(pn) - int(jn)) <= bounces * len(flipped), \
         (int(pn), int(jn), flipped.tolist())
-    assert abs(int(po) - int(jo)) <= 3 * bounces * len(flipped), \
+    # Shadow candidates per bounce: three cone lights, plus env NEE.
+    per_bounce = 3 + int(pf.use_env)
+    assert abs(int(po) - int(jo)) <= per_bounce * bounces * len(flipped), \
         (int(po), int(jo), flipped.tolist())
 
 
 def test_renderer_accumulates_running_mean():
-    r = Renderer(scene_from_numpy(numpy_fields(j_compile(bench_spheres(200)))),
-                 width=32, height=16)
+    r = Renderer(scene_from_numpy(numpy_fields(j_compile(bench_spheres(200))), device="cpu"),
+                 width=32, height=16, device="cpu")
     flags, u, px, py = r.frame_inputs()
     frames = [PI.render_batch(r.scene, flags, u, px, py, f) for f in range(3)]
     r.render_frames(3)
@@ -125,9 +164,9 @@ def test_renderer_accumulates_running_mean():
     assert img.shape == (16, 32, 3) and img.dtype == np.uint8
 
 
-@pytest.mark.parametrize("setting", ["env", "volume", "vis_mode", "stack", "brute"])
+@pytest.mark.parametrize("setting", ["volume", "vis_mode", "stack", "brute"])
 def test_unported_paths_raise(setting):
-    change = {"env": {"use_env": True}, "volume": {"volume_enabled": True},
+    change = {"volume": {"volume_enabled": True},
               "vis_mode": {"vis_mode": 1}, "stack": {"tracer": "stack"},
               "brute": {"use_bvh": False}}[setting]
     flags = dataclasses.replace(StaticFlags(), **change)
@@ -136,14 +175,25 @@ def test_unported_paths_raise(setting):
 
 
 def test_port_imports_and_renders_without_jax():
+    """With the JAX package blocked, the port builds the caffeine and
+    random-sphere scenes and renders them (one under a sky) on the CPU,
+    and loads no module of JAX or of the JAX package."""
     code = (
         "import sys\n"
-        "from webgl_raytracer_tpu_torch.scene import compile_scene, random_sphere_geometry\n"
+        "sys.modules['webgl_raytracer_tpu'] = None\n"
+        "from webgl_raytracer_tpu_torch.env import EnvironmentController\n"
+        "from webgl_raytracer_tpu_torch.scene import (compile_scene, molecule_geometry,\n"
+        "                                             random_sphere_geometry)\n"
         "from webgl_raytracer_tpu_torch.render import Renderer\n"
-        "r = Renderer(compile_scene(random_sphere_geometry(300)), width=16, height=16)\n"
-        "img = r.render(1)\n"
-        "assert img.shape == (16, 16, 3)\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "sky = EnvironmentController(device='cpu').load_analytic_sky(width=32, height=16)\n"
+        "for geo, env in ((random_sphere_geometry(300), sky), (molecule_geometry('caffeine'), None)):\n"
+        "    r = Renderer(compile_scene(geo, device='cpu'), env=env, width=16, height=16,\n"
+        "                 device='cpu')\n"
+        "    img = r.render(1)\n"
+        "    assert img.shape == (16, 16, 3) and img.mean() > 0\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
+        "             or (m.split('.')[0] == 'webgl_raytracer_tpu' and sys.modules[m] is not None))\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -3,6 +3,7 @@ builder, the cluster compile, the scene-centred kernel operands, the
 camera, the lights and the settings split, all exact."""
 
 import dataclasses
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,13 +12,15 @@ import torch
 
 import webgl_raytracer_tpu.ops.pallas_trace as PS
 from bench import random_sphere_geometry as bench_spheres
-from webgl_raytracer_tpu.models import get_builtin_molecule, molecule_to_geometry
+from webgl_raytracer_tpu.models import (BUILTIN_MOLECULE_NAMES, get_builtin_molecule,
+                                        molecule_to_geometry)
 from webgl_raytracer_tpu.render import Renderer as JRenderer
 from webgl_raytracer_tpu.render.config import split_settings as j_split
 from webgl_raytracer_tpu.render.lights import light_dirs_for_camera as j_lights
 from webgl_raytracer_tpu.scene import compile_scene as j_compile
 from webgl_raytracer_tpu.scene import bvh as JBVH
 from webgl_raytracer_tpu.scene.compile import scene_bounds as j_bounds
+from webgl_raytracer_tpu_torch import models as PM
 from webgl_raytracer_tpu_torch.ops.trace import clip_operand, scene_operands
 from webgl_raytracer_tpu_torch.render import Renderer, split_settings, uniforms_from_numpy
 from webgl_raytracer_tpu_torch.render.lights import light_dirs_for_camera
@@ -39,7 +42,7 @@ def _inputs(name):
 @pytest.fixture(scope="module", params=["spheres1000", "caffeine+tris"])
 def scenes(request):
     geo, tv = _inputs(request.param)
-    return j_compile(geo, tri_verts=tv), compile_scene(geo, tri_verts=tv)
+    return j_compile(geo, tri_verts=tv), compile_scene(geo, tri_verts=tv, device="cpu")
 
 
 def test_random_sphere_geometry_matches_bench():
@@ -69,7 +72,7 @@ def test_compile_scene_identical(scenes):
 
 
 def test_bench_scene_has_twelve_clusters():
-    assert compile_scene(random_sphere_geometry(1000)).num_clusters == 12
+    assert compile_scene(random_sphere_geometry(1000), device="cpu").num_clusters == 12
 
 
 def test_scene_operands_identical(scenes):
@@ -94,10 +97,10 @@ def test_scene_operands_identical(scenes):
 
 def test_scene_from_numpy_round_trip(scenes):
     js, ps = scenes
-    carried = scene_from_numpy(numpy_fields(js))
+    carried = scene_from_numpy(numpy_fields(js), device="cpu")
     again = scene_from_numpy({f: (getattr(carried, f).numpy() if f in TENSOR_FIELDS
                                   else getattr(carried, f))
-                              for f in numpy_fields(carried)})
+                              for f in numpy_fields(carried)}, device="cpu")
     for f in TENSOR_FIELDS:
         assert np.array_equal(getattr(ps, f).numpy(), getattr(again, f).numpy())
     assert (again.num_clusters, again.sphere_count) == (js.num_clusters, js.sphere_count)
@@ -110,7 +113,7 @@ def test_bounds_camera_lights_uniforms(scenes):
     assert np.array_equal(np.asarray(lo), plo) and np.array_equal(np.asarray(hi), phi)
 
     jr = JRenderer(js, width=64, height=48)
-    pr = Renderer(ps, width=64, height=48)
+    pr = Renderer(ps, width=64, height=48, device="cpu")
     assert jr.settings.ray_bias == pr.settings.ray_bias
     jb, pb = jr.camera.basis(), pr.camera.basis()
     for f in ("origin", "forward", "right", "up"):
@@ -120,11 +123,11 @@ def test_bounds_camera_lights_uniforms(scenes):
     assert np.array_equal(jl, pl)
 
     jflags, ju = j_split(jr.settings, jb, jl, has_env=False, has_volume=False)
-    pflags, pu = split_settings(pr.settings, pb, pl)
+    pflags, pu = split_settings(pr.settings, pb, pl, device="cpu")
     for f in dataclasses.fields(pflags):
         assert getattr(pflags, f.name) == getattr(jflags, f.name), f.name
     carried = uniforms_from_numpy({f.name: np.asarray(getattr(ju, f.name))
-                                   for f in dataclasses.fields(ju)})
+                                   for f in dataclasses.fields(ju)}, device="cpu")
     for f in dataclasses.fields(pu):
         a, b = getattr(pu, f.name), getattr(carried, f.name)
         assert a.dtype == torch.float32 and torch.equal(a, b), f.name
@@ -133,3 +136,45 @@ def test_bounds_camera_lights_uniforms(scenes):
     px, py = pr._pixel_grids()
     assert np.array_equal(jx, px.numpy()) and np.array_equal(jy, py.numpy())
     assert np.array_equal(np.asarray(jr._unperm), pr._unperm.numpy())
+
+
+@pytest.mark.parametrize("name", BUILTIN_MOLECULE_NAMES)
+def test_builtin_molecules_and_geometry_identical(name):
+    jm, pm = get_builtin_molecule(name), PM.get_builtin_molecule(name)
+    assert np.array_equal(jm.positions, pm.positions)
+    assert jm.elements == pm.elements and np.array_equal(jm.bonds, pm.bonds)
+    for kw in ({}, {"radius_scale": 0.25, "show_bonds": False}):
+        jg, pg = molecule_to_geometry(jm, **kw), PM.molecule_to_geometry(pm, **kw)
+        assert [f.name for f in dataclasses.fields(jg)] == \
+            [f.name for f in dataclasses.fields(pg)]
+        for f in dataclasses.fields(jg):
+            a, b = getattr(jg, f.name), getattr(pg, f.name)
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+
+
+def test_native_bvh_builder_identical():
+    """The port's copy of the C++ builder, built into its own _build/,
+    gives the JAX package's tree."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native builder cannot be built here")
+    geo = bench_spheres(3000)
+    kw = dict(sphere_centers=geo.sphere_centers, sphere_radii=geo.sphere_radii,
+              max_leaf_size=128, max_depth=48, backend="native")
+    a, b = JBVH.build_bvh(**kw), PBVH.build_bvh(**kw)
+    for f in ("node_bmin", "node_bmax", "node_meta", "prim_encoded", "prim_order"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert PBVH.load_bvh_builder() is not None
+    assert "webgl_raytracer_tpu_torch" in str(PBVH.load_bvh_builder()._name)
+
+
+def test_entry_points_raise_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is cuda:0")
+    geo = random_sphere_geometry(50)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_scene(geo)
+    ps = compile_scene(geo, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scene_from_numpy(numpy_fields(ps))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Renderer(ps)

@@ -3,13 +3,18 @@
 The JAX package beside it is the reference; this package renders the same
 scenes with the same transport and the same PCG sample stream on an
 NVIDIA GPU, its ray traversal in hand-written CUDA kernels for Hopper
-(csrc/). It imports torch and never jax. Layout mirrors the reference:
+(csrc/). It imports torch, never jax and nothing of the JAX package.
+Layout mirrors the reference:
 
+  models/  bundled molecules and ball-and-stick geometry (host numpy)
   scene/   host-side BVH build, cluster compile, camera maths
-  ops/     RNG, vector/sampling/BRDF maths, tone map, the cluster tracer
-           and its kernels (ops/trace.py, ops/kernels.py)
+  env/     HDR codec, analytic sky, environment CDFs and controller
+  ops/     RNG, vector/sampling/BRDF maths, env-map sampling, tone map,
+           the cluster tracer and its kernels (ops/trace.py, ops/kernels.py)
   render/  settings split, the path-tracing integrator, the Renderer
-  csrc/    CUDA sources of the kernels
+  csrc/    CUDA sources of the kernels, and the C++ BVH builder
+
+Entry points put their tensors on cuda:0 unless given device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-// Per-ray cluster tracing maths shared by trace_closest.cu and
-// trace_any3.cu.
+// Per-ray cluster tracing maths shared by the trace kernels
+// (trace_closest.cu, trace_any3.cu, trace_any.cu, trace_closest_perray.cu,
+// trace_any_perray.cu).
 //
 // Every expression here is the one in ops/wavefront.py (cluster_entry_t,
 // intersect_soa_t), written in the same operation order with float
@@ -20,6 +21,7 @@ constexpr int kLanes = 128;             // primitives per cluster
 constexpr int kRows = 12;               // SoA rows per cluster
 constexpr int kClusterFloats = kRows * kLanes;
 constexpr int kThreads = 128;           // rays per block
+constexpr int kGroup = 128;             // clusters per group (per-ray walk)
 
 constexpr int kTriangle = 0;
 constexpr int kSphere = 1;
@@ -221,6 +223,73 @@ __device__ __forceinline__ void stage_cluster(float* rows, const float* soa,
   const float* src = soa + static_cast<long long>(c) * kClusterFloats;
   for (int e = threadIdx.x; e < kClusterFloats; e += blockDim.x) {
     rows[e] = src[e];
+  }
+}
+
+// The per-ray walk of trace_closest_perray.cu and trace_any_perray.cu:
+// visits the clusters one ray enters before cap(), front to back. The
+// outer loop takes the kGroup-cluster groups (box gbox[g]) in order of the
+// ray's entry into their AABBs, lowest index first among equal entries,
+// recomputing the entries at each pop instead of storing them; inside a
+// group it stores the entries of the clusters entered before cap() and
+// pops the nearest (lowest cluster first among equal entries). cap() is
+// read before every pop, so a closest hit that shrinks it prunes the rest.
+// visit(c) returns true to end the walk (an occluder found).
+template <class Cap, class Visit>
+__device__ __forceinline__ void walk_front_to_back(const float* box,
+                                                   const float* gbox, int ng,
+                                                   int k, const Ray& r,
+                                                   Cap cap, Visit visit) {
+  float last_e = -INFINITY;
+  int last_g = -1;
+  for (;;) {
+    float ge = INFINITY;
+    int g = -1;
+    for (int q = 0; q < ng; ++q) {
+      const float e = slab_entry(gbox + 6 * q, r);
+      const bool after = e > last_e || (e == last_e && q > last_g);
+      if (after && e < ge) {
+        ge = e;
+        g = q;
+      }
+    }
+    if (g < 0 || !(ge < cap())) {
+      return;
+    }
+    last_e = ge;
+    last_g = g;
+
+    const int c0 = g * kGroup;
+    const int m = min(kGroup, k - c0);
+    const float limit = cap();
+    float ev[kGroup];
+    unsigned char ej[kGroup];
+    int count = 0;
+    for (int j = 0; j < m; ++j) {
+      const float e = slab_entry(box + 6 * (c0 + j), r);
+      if (e < limit) {
+        ev[count] = e;
+        ej[count] = static_cast<unsigned char>(j);
+        ++count;
+      }
+    }
+    for (;;) {
+      float e = INFINITY;
+      int p = -1;
+      for (int q = 0; q < count; ++q) {
+        if (ev[q] < e) {
+          e = ev[q];
+          p = q;
+        }
+      }
+      if (p < 0 || !(e < cap())) {
+        break;
+      }
+      ev[p] = INFINITY;
+      if (visit(c0 + ej[p])) {
+        return;
+      }
+    }
   }
 }
 

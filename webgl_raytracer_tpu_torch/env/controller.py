@@ -1,0 +1,54 @@
+"""Environment selection and caching.
+
+Counterpart of webgl_raytracer_tpu/env/controller.py: a cache keyed by
+HDR path or analytic-sky settings, producing EnvBuffers (image and CDFs,
+built on the controller's device) for the Renderer.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..device import resolve_device
+from ..ops.envmap import EnvBuffers
+from .cdf import make_env_buffers
+from .hdr import load_hdr
+from .sky import ANALYTIC_SKY_ID, analytic_sky_cache_key, generate_analytic_sky
+
+
+class EnvironmentController:
+    def __init__(self, device=None):
+        """device None means cuda:0 (raises without a GPU)."""
+        self.device = resolve_device(device)
+        self._cache: dict[str, EnvBuffers] = {}
+        self.current: EnvBuffers | None = None
+        self.current_key: str | None = None
+
+    def _select(self, key: str, build) -> EnvBuffers:
+        if key not in self._cache:
+            self._cache[key] = build()
+        self.current = self._cache[key]
+        self.current_key = key
+        return self.current
+
+    def load_hdr_file(self, path: str) -> EnvBuffers:
+        """Decode a Radiance .hdr on the host; image and CDFs on the device."""
+        def build():
+            hdr = load_hdr(path)
+            return make_env_buffers(hdr["data"], self.device)
+
+        return self._select(os.path.abspath(path), build)
+
+    def load_analytic_sky(self, settings=None, **kw) -> EnvBuffers:
+        """Bake the Preetham sky and its CDFs on the device."""
+        def build():
+            sky = generate_analytic_sky(settings, device=self.device, **kw)
+            return make_env_buffers(sky["data"], self.device)
+
+        return self._select(ANALYTIC_SKY_ID + ":" + analytic_sky_cache_key(settings, **kw),
+                            build)
+
+    def clear(self) -> None:
+        """Back to 'no environment'."""
+        self.current = None
+        self.current_key = None

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/) for Hopper.
 
-The sources compile with nvcc into one shared library with a plain C
+Each source compiles with its own nvcc process, all started together,
+and one more nvcc links the objects into a shared library with a plain C
 interface, loaded through ctypes. The build runs at first use, keyed by a
 hash of the sources and flags, into webgl_raytracer_tpu_torch/_build/
 (git-ignored), so a fresh checkout builds everything on its first trace.
@@ -23,7 +24,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("trace_closest.cu", "trace_any3.cu")
+SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
+           "trace_closest_perray.cu", "trace_any_perray.cu")
 HEADERS = ("intersect.cuh",)
 
 # -fmad=false keeps every a*b+c rounded twice, as the plain PyTorch
@@ -31,7 +33,7 @@ HEADERS = ("intersect.cuh",)
 # --use_fast_math: padding primitives rely on NaN compares, and the maths
 # needs IEEE sqrtf and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -62,25 +64,42 @@ def library_path() -> Path:
 
 
 def build(ptxas_verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile the kernels unless this source hash is already built.
-    Returns (library path, build seconds (0 when cached), compiler
-    messages). Raises on a failed build."""
+    """Compile the kernels unless this source hash is already built: one
+    nvcc per source in parallel, then one link. Returns (library path,
+    build seconds (0 when cached), compiler messages). Raises on a failed
+    build."""
     out = library_path()
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if ptxas_verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(CSRC_DIR / s) for s in SOURCES]
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    nvcc = nvcc_path()
+    extra = ["-Xptxas", "-v"] if ptxas_verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(CSRC_DIR / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    messages, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        text = proc.communicate()[0]
+        messages.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
-    return out, seconds, proc.stderr
+    return out, time.perf_counter() - t0, "".join(messages)
 
 
 @functools.cache
@@ -95,6 +114,15 @@ def library() -> ctypes.CDLL:
     lib.wrt_trace_any3.restype = i32
     lib.wrt_trace_any3.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
                                    ptr, ptr]
+    lib.wrt_trace_any.restype = i32
+    lib.wrt_trace_any.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                  ptr, ptr]
+    lib.wrt_trace_closest_perray.restype = i32
+    lib.wrt_trace_closest_perray.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr,
+                                             i32, ptr, i32, ptr, ptr, ptr]
+    lib.wrt_trace_any_perray.restype = i32
+    lib.wrt_trace_any_perray.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                         ptr, i32, ptr, ptr]
     return lib
 
 

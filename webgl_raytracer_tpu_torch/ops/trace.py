@@ -1,5 +1,5 @@
-"""The two hand-written Hopper kernels of the main path, their plain
-PyTorch versions, and the scene-centred operands they share.
+"""The hand-written Hopper trace kernels, their plain PyTorch versions,
+the scene-centred operands they share and the per-ray routing.
 
 trace_closest
     Replaces `_make_closest_kernel` (webgl_raytracer_tpu/ops/pallas_trace.py,
@@ -10,17 +10,36 @@ trace_any3
     Replaces `_make_any3_kernel` (same file, reached through `trace_any3`
     and `_grid_call3`): occlusion of three co-origin rays per lane, the
     3-cone-light shadow fan.
+trace_any
+    Replaces `_make_any_kernel` (same file, reached through `trace_any`
+    and `_grid_call`): occlusion of one ray per lane with t in
+    (accept_min, t_max), the env-NEE shadow query.
+trace_closest_perray / trace_any_perray (trace_closest / trace_any with perray=True)
+    Replace `_make_closest_kernel_perray` / `_make_any_kernel_perray`
+    (same file, reached through `trace_closest` / `trace_any` with
+    perray=True and `_grid_call_perray`): the same functions, each ray
+    walking its own clusters front to back; above 128 clusters an outer
+    front-to-back walk over 128-cluster groups by group AABB.
 
 What bounds them on the H100: per-ray FP32 intersector arithmetic. At the
-1000-sphere scene's K = 12 clusters the whole cluster table is 72 KB, so
-the traces are compute-bound, not bandwidth-bound. The kernels
-(csrc/trace_closest.cu, csrc/trace_any3.cu) run one thread per ray: a
-root-AABB gate, then a walk over the clusters in index order, skipping each
-cluster whose AABB the ray misses or enters at or beyond its current best
-t, and staging a cluster's 12x128 rows in shared memory whenever a thread
-of the block needs them. Front-to-back ordering and the TPU's block
-worklists are schedule choices and are not carried over; the outputs do
-not depend on them.
+1000-sphere scene's K = 12 clusters the whole cluster table is 72 KB; at
+10k spheres (K = 128) 786 KB and at 150k (K = 1976) 12 MB, all inside the
+50 MB L2, so the traces are compute-bound, not bandwidth-bound. The block
+kernels (csrc/trace_closest.cu, trace_any3.cu, trace_any.cu) run one thread
+per ray: a root-AABB gate, then a walk over the clusters in index order,
+skipping each cluster whose AABB the ray misses or enters at or beyond its
+current best t (or t_max), and staging a cluster's 12x128 rows in shared
+memory whenever a thread of the block needs them. The per-ray kernels
+(trace_closest_perray.cu, trace_any_perray.cu) read the rows from global
+memory (L2) instead: divergent rays of one block share few clusters.
+The TPU's block worklists are schedule choices and are not carried over;
+the outputs do not depend on the visiting order (see the tie-break below).
+
+Routing follows the JAX package (pallas_trace.perray_auto_secondary /
+perray_auto_any): secondary closest traces and divergent occlusion batches
+go per-ray on scenes of PERRAY_MIN_CLUSTERS = 64 or more clusters whose
+primitives are one type or spheres + cylinders. The threshold was measured
+on a TPU; it stands until an H100 measurement replaces it.
 
 Semantics shared by the kernels and their plain versions:
   * operands are centred on the scene midpoint exactly as
@@ -30,14 +49,22 @@ Semantics shared by the kernels and their plain versions:
   * tie-break: the lexicographic minimum of (t, row), row = cluster*128 +
     lane. The TPU kernel's rule (strict < per lane slot in visiting order,
     then the lowest packed row) equals it except for exactly equal t from
-    two clusters in the same lane slot;
+    two clusters in the same lane slot. The per-ray walks reach the same
+    minimum in another cluster order; they can differ from the index-order
+    walk only where a skipped cluster's entry equals the best t exactly
+    and holds a primitive at that same t with a lower row, or where a
+    grazing primitive's t rounds below its own cluster's entry;
+  * a cluster is swept only where the ray enters its AABB before the
+    current best t (closest) or before t_max (occlusion); occlusion is an
+    order-free OR over those clusters, so all occlusion kernels agree bit
+    for bit;
   * inactive lanes return a miss (t = BIG, row = -1; occlusion bits 0).
 
 Dispatch is by tensor device: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, which raises when it cannot be built or launched.
 `impl="plain"` forces the plain version on a CUDA tensor (used to compare
-the two). Each wrapper counts its kernel launches in a plain integer
-attribute, `launches`.
+the two). `launches` counts each kernel's launches by name, incremented
+only where the kernel is launched.
 
 The kernels build with -fmad=false so that every a*b+c rounds twice, as
 the plain version's separate tensor ops do; then integer outputs and t
@@ -63,6 +90,7 @@ class TraceOperands:
     soa: torch.Tensor      # f32[K,12,C]; positional rows shifted by -mid,
     #                        NaN radius on padding primitives
     box: torch.Tensor      # f32[K,6]: centred bmin xyz, bmax xyz
+    gbox: torch.Tensor     # f32[G,6]: AABBs of the groups of GROUP clusters
     mid: torch.Tensor      # f32[3]
     ctype: torch.Tensor    # i32[K]: the cluster's primitive type, -1 mixed
     ctype_host: tuple      # the same, as python ints (plain version)
@@ -70,10 +98,19 @@ class TraceOperands:
     types: tuple           # (has_spheres, has_cylinders, has_triangles)
 
 
+# Clusters per group of the per-ray kernels' two-level walk (the JAX
+# package's 128-lane group); csrc/intersect.cuh kGroup.
+GROUP = 128
+
+
 def scene_operands(scene) -> TraceOperands:
     """The centring of pallas_trace._scene_operands, in the kernels' own
     layout: the SoA stays [K,12,C] (no TPU row padding) and the AABBs stay
-    per cluster (no lane packing or group boxes)."""
+    per cluster (no lane packing); group boxes cover clusters
+    [g*GROUP, (g+1)*GROUP). A group box contains its clusters' boxes, and
+    slab entries round monotonically, so a group's entry is never later
+    than any of its clusters' entries and a ray that misses it misses
+    them all."""
     soa = scene.cluster_soa
     bmin = scene.cluster_bmin
     bmax = scene.cluster_bmax
@@ -92,8 +129,10 @@ def scene_operands(scene) -> TraceOperands:
     ctype = torch.where((tmax == tmn) & (tmax >= 0), tmax, -1.0).to(torch.int32)
     box = torch.cat([bmin - mid[None, :], bmax - mid[None, :]], dim=1)
     root = torch.cat([bmin.min(dim=0).values - mid, bmax.max(dim=0).values - mid])
+    gbox = torch.stack([torch.cat([g[:, :3].min(dim=0).values, g[:, 3:].max(dim=0).values])
+                        for g in box.split(GROUP)])
     return TraceOperands(
-        soa=soa_c.contiguous(), box=box.contiguous(), mid=mid,
+        soa=soa_c.contiguous(), box=box.contiguous(), gbox=gbox.contiguous(), mid=mid,
         ctype=ctype.contiguous(),
         ctype_host=tuple(int(c) for c in ctype.cpu().tolist()),
         root=root, types=scene_types(scene))
@@ -140,8 +179,55 @@ def _use_kernel(x: torch.Tensor, impl) -> bool:
     return False
 
 
+# Kernel launches by kernel name; only the CUDA launch sites add to them.
+launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
+                          "trace_closest_perray", "trace_any_perray"), 0)
+
+
 def _f32_row(x, n, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
+
+
+# ---------------------------------------------------------------------------
+# Per-ray routing (pallas_trace.perray_supported / perray_auto_*).
+
+MIN_CLUSTERS = 4              # pallas_trace.MIN_CLUSTERS
+PERRAY_MAX_CLUSTERS = 4096    # pallas_trace.PERRAY_MAX_CLUSTERS
+PERRAY_MIN_CLUSTERS = 64      # pallas_trace.PERRAY_MIN_CLUSTERS (a TPU measurement)
+
+
+def perray_types(scene) -> tuple:
+    """The JAX package's per-ray mode (pallas_trace._perray_mode) as its
+    intersector set: the scene's one type, spheres + cylinders, or all
+    three. Routing reads it: three-type mixes stay on the block kernels."""
+    types = scene_types(scene)
+    if sum(types) == 1:
+        return types
+    if types[0] and types[1] and not types[2]:
+        return (True, True, False)
+    return (True, True, True)
+
+
+def perray_supported(scene) -> bool:
+    """pallas_trace.perray_supported. Its 4..4096 cluster range is a TPU
+    limit, kept only so that the routing matches the JAX package's; the
+    CUDA kernels take any K."""
+    return (MIN_CLUSTERS <= scene.num_clusters <= PERRAY_MAX_CLUSTERS
+            and scene.cluster_size == 128)
+
+
+def perray_auto_secondary(scene) -> bool:
+    """Secondary (divergent) closest traces go per-ray on cluster-rich
+    scenes of one type or spheres + cylinders."""
+    return (perray_supported(scene) and scene.num_clusters >= PERRAY_MIN_CLUSTERS
+            and sum(perray_types(scene)) <= 2)
+
+
+def perray_auto_any(scene, divergent: bool = False) -> bool:
+    """Occlusion batches go per-ray only when divergent (env NEE) and the
+    scene qualifies as for secondary closest traces; co-directional
+    shadow fans stay on the block kernels."""
+    return divergent and perray_auto_secondary(scene)
 
 
 # ---------------------------------------------------------------------------
@@ -161,18 +247,19 @@ def closest_operand(o3, d3, t_min, active, mid):
         _f32_row(t_min, n, device), act]).contiguous()
 
 
-def trace_closest(scene, o3, d3, t_min, clip=None, active=None, impl=None):
+def trace_closest(scene, o3, d3, t_min, clip=None, active=None, perray=False,
+                  impl=None):
     """Closest hit: (t f32[N] with BIG on a miss, row i32[N] with -1 on a
-    miss), rows indexing the [K*C] cluster slots."""
+    miss), rows indexing the [K*C] cluster slots. perray=True takes the
+    per-ray walk (kernel trace_closest_perray); the result is the same."""
     ops = scene.trace_operands
     od = closest_operand(o3, d3, t_min, active, ops.mid)
     cp, clip_on = clip_operand(clip, ops)
     if _use_kernel(od, impl):
-        return _closest_cuda(ops, od, cp, clip_on)
+        return _closest_cuda(ops, od, cp, clip_on, perray)
+    if perray:
+        return _perray_walk(ops, od, cp, clip_on, any_hit=False)[:2]
     return closest_plain(ops, od, cp, clip_on)
-
-
-trace_closest.launches = 0
 
 
 def closest_plain(ops: TraceOperands, od, cp, clip_on):
@@ -222,25 +309,35 @@ def _cluster_types(ct: int, scene_types_: tuple) -> tuple:
     return (ct == 1, ct == 2, ct == 0)
 
 
-def _closest_cuda(ops: TraceOperands, od, cp, clip_on):
+def _launch(name: str, ops: TraceOperands, od, cp, clip_on, outs, group=False):
+    """Check the operands and launch kernel `name` of the library on od's
+    stream: (od, n, soa, box, [gbox, G,] ctype, K, cp, clip_on, *outs).
+    Raises on a refused launch."""
     from .kernels import check_operand, library, stream_handle
 
+    if ops.soa.shape[-1] != 128:
+        raise ValueError("the CUDA trace kernels take clusters of 128 primitives")
+    for x, dt in ((od, torch.float32), (ops.soa, torch.float32),
+                  (ops.box, torch.float32), (ops.gbox, torch.float32),
+                  (ops.ctype, torch.int32), (cp, torch.float32)):
+        check_operand(x, dt, od.device)
+    groups = (ops.gbox.data_ptr(), ops.gbox.shape[0]) if group else ()
+    err = getattr(library(), name)(
+        od.data_ptr(), od.shape[1], ops.soa.data_ptr(), ops.box.data_ptr(), *groups,
+        ops.ctype.data_ptr(), ops.soa.shape[0], cp.data_ptr(), int(clip_on),
+        *(o.data_ptr() for o in outs), stream_handle(od.device))
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def _closest_cuda(ops: TraceOperands, od, cp, clip_on, perray=False):
+    name = "trace_closest_perray" if perray else "trace_closest"
     n = od.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=od.device)
     row = torch.empty(n, dtype=torch.int32, device=od.device)
-    if n == 0:
-        return t, row
-    for x, dt in ((od, torch.float32), (ops.soa, torch.float32),
-                  (ops.box, torch.float32), (ops.ctype, torch.int32),
-                  (cp, torch.float32)):
-        check_operand(x, dt, od.device)
-    err = library().wrt_trace_closest(
-        od.data_ptr(), n, ops.soa.data_ptr(), ops.box.data_ptr(),
-        ops.ctype.data_ptr(), ops.soa.shape[0], cp.data_ptr(), int(clip_on),
-        t.data_ptr(), row.data_ptr(), stream_handle(od.device))
-    if err != 0:
-        raise RuntimeError(f"wrt_trace_closest failed: CUDA error {err}")
-    trace_closest.launches += 1
+    if n:
+        _launch("wrt_" + name, ops, od, cp, clip_on, (t, row), group=perray)
+        launches[name] += 1
     return t, row
 
 
@@ -285,8 +382,6 @@ def trace_any3(scene, o3, d3s, t_min, accept_min=None, clip=None,
     return tuple((bits & (1 << j)) != 0 for j in range(3))
 
 
-trace_any3.launches = 0
-
 
 def any3_plain(ops: TraceOperands, od, cp, clip_on):
     """Plain version of the shadow-fan kernel on the same operands:
@@ -326,21 +421,133 @@ def any3_plain(ops: TraceOperands, od, cp, clip_on):
 
 
 def _any3_cuda(ops: TraceOperands, od, cp, clip_on):
-    from .kernels import check_operand, library, stream_handle
-
     n = od.shape[1]
     bits = torch.empty(n, dtype=torch.int32, device=od.device)
-    if n == 0:
-        return bits
-    for x, dt in ((od, torch.float32), (ops.soa, torch.float32),
-                  (ops.box, torch.float32), (ops.ctype, torch.int32),
-                  (cp, torch.float32)):
-        check_operand(x, dt, od.device)
-    err = library().wrt_trace_any3(
-        od.data_ptr(), n, ops.soa.data_ptr(), ops.box.data_ptr(),
-        ops.ctype.data_ptr(), ops.soa.shape[0], cp.data_ptr(), int(clip_on),
-        bits.data_ptr(), stream_handle(od.device))
-    if err != 0:
-        raise RuntimeError(f"wrt_trace_any3 failed: CUDA error {err}")
-    trace_any3.launches += 1
+    if n:
+        _launch("wrt_trace_any3", ops, od, cp, clip_on, (bits,))
+        launches["trace_any3"] += 1
     return bits
+
+
+# ---------------------------------------------------------------------------
+# Plain version of the per-ray walks.
+
+
+def _perray_walk(ops: TraceOperands, od, cp, clip_on, any_hit: bool):
+    """Plain version of the per-ray kernels: each ray pops its nearest
+    unvisited cluster entry (lowest index among equal entries) while that
+    entry is before its best t (closest; the lexicographic (t, row)
+    update) or, for occlusion, before t_max until a hit is found. od is
+    closest_operand's layout, or any_operand's when any_hit. The kernels'
+    outer group walk only skips groups whose clusters this flat walk would
+    skip too, so it is not repeated here. Returns (t, row, found)."""
+    n = od.shape[1]
+    device = od.device
+    k, c = ops.soa.shape[0], ops.soa.shape[-1]
+    clip = _clip_of(cp, clip_on)
+    kio = torch.arange(k, device=device)
+    lane = torch.arange(c, device=device)
+    t_out = torch.full((n,), BIG, dtype=torch.float32, device=device)
+    row_out = torch.full((n,), -1, dtype=torch.int32, device=device)
+    found_out = torch.zeros((n,), dtype=torch.bool, device=device)
+    for s in range(0, n, PLAIN_CHUNK):
+        sl = slice(s, min(n, s + PLAIN_CHUNK))
+        d3 = (od[0, sl], od[1, sl], od[2, sl])
+        o3 = (od[3, sl], od[4, sl], od[5, sl])
+        tmin = od[6, sl]
+        entry = cluster_entry_t(ops.box[:, :3], ops.box[:, 3:], o3, d3)
+        entry = torch.where(od[7, sl][:, None] > 0.0, entry, INF)
+        if any_hit:
+            cap, lo = od[8, sl], od[9, sl]
+            entry = torch.where(entry < cap[:, None], entry, INF)
+        best, row, found = t_out[sl].clone(), row_out[sl].clone(), found_out[sl].clone()
+        while True:
+            m = entry.min(dim=1).values
+            sel = (m < INF) & ~found if any_hit else m < best
+            rs = sel.nonzero().squeeze(1)
+            if rs.numel() == 0:
+                break
+            er = entry[rs]
+            idx = torch.where(er == m[rs, None], kio, k).min(dim=1).values
+            entry[rs, idx] = INF
+            ts = intersect_soa_t(ops.types, ops.soa[idx],
+                                 tuple(x[rs] for x in o3), tuple(x[rs] for x in d3),
+                                 tmin[rs], clip)
+            if any_hit:
+                found[rs] = ((ts > lo[rs, None]) & (ts < cap[rs, None])).any(dim=1)
+                continue
+            tm = torch.where(ts > 0.0, ts, INF)
+            tb = tm.min(dim=1).values
+            cand = (idx * c + torch.where(tm == tb[:, None], lane, c).min(dim=1).values
+                    ).to(torch.int32)
+            b0, r0 = best[rs], row[rs]
+            upd = (tb < b0) | ((tb == b0) & (cand < r0))
+            best[rs] = torch.where(upd, tb, b0)
+            row[rs] = torch.where(upd, cand, r0)
+        t_out[sl], row_out[sl], found_out[sl] = best, row, found
+    return t_out, row_out, found_out
+
+
+# ---------------------------------------------------------------------------
+# Single-direction occlusion (block and per-ray).
+
+
+def any_operand(o3, d3, t_min, t_max, accept_lo, active, mid):
+    """od f32[10,N]: rows 0-2 direction, 3-5 centred origin, 6 t_min,
+    7 activity (1/0), 8 t_max, 9 accept_lo."""
+    n = o3[0].shape[0]
+    device = o3[0].device
+    act = (torch.ones(n, dtype=torch.float32, device=device) if active is None
+           else active.to(torch.float32))
+    return torch.stack([
+        d3[0], d3[1], d3[2],
+        o3[0] - mid[0], o3[1] - mid[1], o3[2] - mid[2],
+        _f32_row(t_min, n, device), act, _f32_row(t_max, n, device),
+        _f32_row(accept_lo, n, device)]).contiguous()
+
+
+def trace_any(scene, o3, d3, t_min, t_max=BIG, accept_min=None, clip=None,
+              active=None, perray=False, impl=None):
+    """Occlusion: bool [N], True where some primitive is hit with t in
+    (accept_min, t_max). perray=True takes the per-ray walk (kernel
+    trace_any_perray); the bits are the same."""
+    ops = scene.trace_operands
+    od = any_operand(o3, d3, t_min, t_max, 0.0 if accept_min is None else accept_min,
+                     active, ops.mid)
+    cp, clip_on = clip_operand(clip, ops)
+    if _use_kernel(od, impl):
+        name = "trace_any_perray" if perray else "trace_any"
+        found = torch.empty(od.shape[1], dtype=torch.int32, device=od.device)
+        if od.shape[1]:
+            _launch("wrt_" + name, ops, od, cp, clip_on, (found,), group=perray)
+            launches[name] += 1
+        return found != 0
+    if perray:
+        return _perray_walk(ops, od, cp, clip_on, any_hit=True)[2]
+    return any_plain(ops, od, cp, clip_on)
+
+
+def any_plain(ops: TraceOperands, od, cp, clip_on):
+    """Plain version of the occlusion kernel on the same operands: bool
+    [N]. Cluster k is swept for a ray still unresolved whose entry into
+    k's AABB is before its t_max."""
+    n = od.shape[1]
+    clip = _clip_of(cp, clip_on)
+    found_out = torch.zeros((n,), dtype=torch.bool, device=od.device)
+    for s in range(0, n, PLAIN_CHUNK):
+        sl = slice(s, min(n, s + PLAIN_CHUNK))
+        d3 = (od[0, sl], od[1, sl], od[2, sl])
+        o3 = (od[3, sl], od[4, sl], od[5, sl])
+        tmin, cap, lo = od[6, sl], od[8, sl][:, None], od[9, sl][:, None]
+        entry = cluster_entry_t(ops.box[:, :3], ops.box[:, 3:], o3, d3)
+        live = (od[7, sl][:, None] > 0.0) & (entry < cap)
+        found = torch.zeros_like(found_out[sl])
+        for k, ct in enumerate(ops.ctype_host):
+            need = live[:, k] & ~found
+            if not bool(need.any()):
+                continue
+            ts = intersect_soa_t(_cluster_types(ct, ops.types), ops.soa[k],
+                                 o3, d3, tmin, clip)
+            found = found | (need & ((ts > lo) & (ts < cap)).any(dim=1))
+        found_out[sl] = found
+    return found_out

@@ -6,7 +6,9 @@ and `intersect_soa_t` are the same expressions as the reference (and as
 the hand-written kernels in csrc/), so the plain versions in ops/trace.py
 that use them round exactly like the kernels. Every closest-hit and shadow
 query goes through ops/trace.py: a CUDA tensor takes the kernel, which
-serves every scene; a CPU tensor takes the plain version.
+serves every scene; a CPU tensor takes the plain version. Secondary
+closest traces and divergent (env-NEE) occlusion batches on cluster-rich
+scenes take the per-ray kernels, where the JAX package routes them.
 """
 
 from __future__ import annotations
@@ -69,13 +71,14 @@ def cluster_entry_t(bmin, bmax, o3, d3):
 
 
 def intersect_soa_t(types, soa, o3, d3, t_min, clip):
-    """t [B,C] of [B] rays against one cluster's SoA block soa [12,C]
-    (-1 = no hit). types = (has_spheres, has_cylinders, has_triangles)
-    selects the intersectors to evaluate; each lane keeps its own type's
-    result. clip is None or ((nx, ny, nz), offset, side): triangle hits on
-    the clipped side are rejected."""
+    """t [B,C] of [B] rays against one cluster's SoA block soa [12,C], or
+    against one block per ray, soa [B,12,C] (-1 = no hit). types =
+    (has_spheres, has_cylinders, has_triangles) selects the intersectors
+    to evaluate; each lane keeps its own type's result. clip is None or
+    ((nx, ny, nz), offset, side): triangle hits on the clipped side are
+    rejected."""
     def row(i):
-        return soa[i][None, :]
+        return soa[i][None, :] if soa.dim() == 2 else soa[:, i, :]
 
     ox, oy, oz = (c[:, None] for c in o3)
     dx, dy, dz = (c[:, None] for c in d3)
@@ -297,18 +300,37 @@ def _broadcast_t_min(t_min, like):
 
 
 def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
-                        impl=None) -> HitRecord:
+                        secondary=False, impl=None) -> HitRecord:
     """Closest hit over the cluster SoA; rays as component triples.
     prim_slot indexes the padded cluster table ([K*C, 12]). The kernel's
     t is rounded in scene-centred coordinates; finalisation refines
-    sphere winners in global coordinates."""
+    sphere winners in global coordinates.
+
+    secondary: the batch is divergent bounce rays; on cluster-rich scenes
+    it goes to the per-ray kernel (ops/trace.perray_auto_secondary), as
+    the JAX package routes it."""
     from . import trace as T
 
     t_min = _broadcast_t_min(t_min, o3[0])
+    perray = secondary and T.perray_auto_secondary(scene)
     closest, best_row = T.trace_closest(scene, o3, d3, t_min, clip=clip,
-                                        active=active, impl=impl)
+                                        active=active, perray=perray, impl=impl)
     return _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row,
                          cost=None, refine_sphere_t=True)
+
+
+def wf_trace_any_v3(scene, o3, d3, t_min, t_max=BIG, accept_min=None,
+                    clip=None, active=None, divergent=False, impl=None):
+    """Occlusion (any hit with t in (accept_min, t_max)): bool [N].
+    divergent=True marks batches whose directions scatter over the sphere
+    (env-NEE occlusion); on cluster-rich scenes those go to the per-ray
+    kernel (ops/trace.perray_auto_any), as the JAX package routes them."""
+    from . import trace as T
+
+    t_min = _broadcast_t_min(t_min, o3[0])
+    return T.trace_any(scene, o3, d3, t_min, t_max=t_max, accept_min=accept_min,
+                       clip=clip, active=active,
+                       perray=T.perray_auto_any(scene, divergent), impl=impl)
 
 
 def wf_trace_any3_v3(scene, o3, d3s, t_min, accept_min=None, clip=None,

@@ -1,12 +1,14 @@
-"""Where the time of one main-path frame goes, on a GPU.
+"""Where the time of a 1080p frame goes, on a GPU.
 
     python -m webgl_raytracer_tpu_torch.profile_frame
 
-Renders the 1000-sphere scene (default settings, 1920x1080) for two warm
-frames, the second of them timed, then one frame under torch.profiler, and
-prints one JSON line: both frames' wall milliseconds, the device busy time
-of the profiled frame (sum of kernel times), the idle share against each
-wall time, the two trace kernels' share, and the top kernels by device
+For each of two scenes — the 1000-sphere main path (default settings,
+ambient light) and the 10k-sphere scene under the default analytic sky
+(1024x512, env_intensity 0.4) — renders two warm frames at 1920x1080, the
+second of them timed, then one frame under torch.profiler, and prints one
+JSON line: both frames' wall milliseconds, the device busy time of the
+profiled frame (sum of kernel times), the idle share against each wall
+time, the trace kernels' time and launches, and the top kernels by device
 time. The idle share against the unprofiled frame is an estimate: busy
 time and wall time come from two consecutive frames of one run.
 """
@@ -14,26 +16,20 @@ time and wall time come from two consecutive frames of one run.
 from __future__ import annotations
 
 import json
+import subprocess
 import time
 
 WIDTH, HEIGHT = 1920, 1080
 TOP_KERNELS = 12
+TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any_kernel",
+                 "trace_closest_perray_kernel", "trace_any_perray_kernel")
 
 
-def main() -> int:
+def profile_scene(name, r) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from .scene import compile_scene, random_sphere_geometry
-    from .render import Renderer
-
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_frame needs a CUDA device")
-
-    device = torch.device("cuda", 0)
-    r = Renderer(compile_scene(random_sphere_geometry(1000), device=device),
-                 width=WIDTH, height=HEIGHT, device=device)
     r.settings.tone_map = "linear"
     r.render_frame()
     torch.cuda.synchronize()
@@ -54,19 +50,49 @@ def main() -> int:
             rows.append((e.key, e.self_device_time_total / 1000.0, e.count))
     rows.sort(key=lambda x: -x[1])
     busy_ms = sum(ms for _, ms, _ in rows)
-    trace_ms = sum(ms for k, ms, _ in rows if "trace_closest_kernel" in k
-                   or "trace_any3_kernel" in k)
-    print(json.dumps({
+    def is_(t, key):
+        # Mangled ("...16trace_any_kernelEPKf...") or demangled ("trace_any_kernel(").
+        return t + "E" in key or t + "(" in key
+
+    traces = {t: [sum(ms for k, ms, _ in rows if is_(t, k)),
+                  sum(c for k, _, c in rows if is_(t, k))] for t in TRACE_KERNELS}
+    return {
+        "scene": name,
         "device": torch.cuda.get_device_name(0),
         "size": f"{WIDTH}x{HEIGHT}",
         "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_idle_share_unprofiled_est": max(0.0, 1.0 - busy_ms / plain_wall_ms),
-        "trace_kernels_ms": trace_ms,
+        "trace_kernels_ms": sum(v[0] for v in traces.values()),
+        "trace_kernels_ms_calls": traces,
         "kernel_launches": sum(c for _, _, c in rows),
         "top": [{"kernel": k[:90], "ms": ms, "calls": c}
-                for k, ms, c in rows[:TOP_KERNELS]]}), flush=True)
+                for k, ms, c in rows[:TOP_KERNELS]]}
+
+
+def main() -> int:
+    import torch
+
+    from .env import EnvironmentController
+    from .render import Renderer
+    from .scene import compile_scene, random_sphere_geometry
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frame needs a CUDA device")
+    device = torch.device("cuda", 0)
+    nvsmi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(nvsmi, flush=True)
+    sky = EnvironmentController(device=device).load_analytic_sky()
+    main_path = Renderer(compile_scene(random_sphere_geometry(1000), device=device),
+                         width=WIDTH, height=HEIGHT, device=device)
+    print(json.dumps(profile_scene("spheres1000", main_path)), flush=True)
+    lit = Renderer(compile_scene(random_sphere_geometry(10000), device=device),
+                   env=sky, width=WIDTH, height=HEIGHT, device=device)
+    lit.settings.env_intensity = 0.4
+    print(json.dumps(profile_scene("spheres10k analytic sky", lit)), flush=True)
     return 0
 
 

@@ -15,6 +15,8 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 MATERIAL_MODES = {"metallic": 0, "matte": 1, "surface-glass": 2, "translucent-plastic": 3}
 
 
@@ -148,10 +150,11 @@ class Uniforms:
     resolution: torch.Tensor        # f32[2] (width, height)
 
 
-def uniforms_from_numpy(fields_: dict, device="cpu") -> Uniforms:
+def uniforms_from_numpy(fields_: dict, device=None) -> Uniforms:
     """Uniforms from the JAX package's Uniforms fields (arrays converted
-    with numpy) — carries identical per-frame values into the port."""
-    device = torch.device(device)
+    with numpy) — carries identical per-frame values into the port.
+    device None means cuda:0."""
+    device = resolve_device(device)
     return Uniforms(**{
         f.name: torch.tensor(np.asarray(fields_[f.name], np.float32),
                              device=device)
@@ -160,8 +163,9 @@ def uniforms_from_numpy(fields_: dict, device="cpu") -> Uniforms:
 
 def split_settings(settings: RenderSettings, camera_basis, light_dirs,
                    has_env: bool = False, has_volume: bool = False,
-                   clip=None, device="cpu") -> tuple[StaticFlags, Uniforms]:
-    """(static flags, uniforms on `device`) for one frame.
+                   clip=None, device=None) -> tuple[StaticFlags, Uniforms]:
+    """(static flags, uniforms on `device`, None meaning cuda:0) for one
+    frame. has_env sets use_env (env miss radiance and env NEE).
 
     light_dirs: f32[3,3] world-space light directions for this camera.
     clip: optional (normal, offset, side)."""
@@ -192,7 +196,7 @@ def split_settings(settings: RenderSettings, camera_basis, light_dirs,
     else:
         clip_normal, clip_offset, clip_side = clip
 
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)

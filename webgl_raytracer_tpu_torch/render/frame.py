@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.tonemap import apply_tonemap
 from ..scene.camera import OrbitCamera
 from ..scene.compile import SceneBuffers, scene_bounds, scene_scale
@@ -44,19 +45,23 @@ def morton_pixel_order(width: int, height: int):
 
 
 class Renderer:
-    """Owns the scene on its device, the settings, the camera and the
-    progressive accumulator.
+    """Owns the scene and environment on its device, the settings, the
+    camera and the progressive accumulator.
 
+    device: None means cuda:0 (raises without a GPU); "cpu" renders with
+    the plain traces. env: EnvBuffers (env/) or None for ambient light only.
     impl: None (kernels on CUDA tensors, plain versions on CPU ones) or
     "plain" to force the plain traces on a CUDA device (comparison runs).
     """
 
     def __init__(self, scene: SceneBuffers, settings: RenderSettings | None = None,
-                 width: int = 800, height: int = 600, device=None,
+                 env=None, width: int = 800, height: int = 600, device=None,
                  impl: str | None = None, auto_fit: bool = True):
         self.settings = settings or RenderSettings()
-        self.device = torch.device(device) if device is not None else scene.device
+        self.device = resolve_device(device)
         self.scene = scene if scene.device == self.device else scene.to(self.device)
+        self.env = None
+        self.set_env(env)
         self.impl = impl
         self.width = int(width)
         self.height = int(height)
@@ -79,6 +84,14 @@ class Renderer:
     def reset_accumulation(self) -> None:
         self.frame_index = 0
 
+    def set_env(self, env) -> None:
+        """Swap the environment (EnvBuffers or None) and restart
+        accumulation."""
+        if env is not None and env.device != self.device:
+            env = env.to(self.device)
+        self.env = env
+        self.reset_accumulation()
+
     def _pixel_grids(self):
         """Flat pixel index tensors in Morton-ordered 16x16 tiles (y = 0 is
         the bottom row, the gl_FragCoord convention)."""
@@ -96,7 +109,8 @@ class Renderer:
         basis = self.camera.basis()
         light_dirs = light_dirs_for_camera(s.lights, basis)
         clip = self.active_clip_plane(basis)
-        flags, uniforms = split_settings(s, basis, light_dirs, clip=clip,
+        flags, uniforms = split_settings(s, basis, light_dirs,
+                                         has_env=self.env is not None, clip=clip,
                                          device=self.device)
         px, py = self._pixel_grids()
         return flags, uniforms, px, py
@@ -122,7 +136,7 @@ class Renderer:
             return False
         flags, uniforms, px, py = self.frame_inputs()
         color = render_batch(self.scene, flags, uniforms, px, py,
-                             self.frame_index, impl=self.impl)
+                             self.frame_index, env=self.env, impl=self.impl)
         if self._accum is None or self.frame_index == 0:
             self._accum = color
         else:

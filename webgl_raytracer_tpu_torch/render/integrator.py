@@ -4,19 +4,19 @@ Counterpart of webgl_raytracer_tpu/render/integrator.py, whole-batch
 transport only: every ray of the frame steps through the bounce loop
 together, dead paths masked out of traversal and shading. Per bounce:
 
-  closest hit (ops/trace kernel) -> ambient on miss -> surface
-  reconstruction by primitive type -> glass/translucent stochastic
-  transmission -> 3 cone lights with the fused 3-direction shadow fan and
-  MIS -> GGX/cosine BRDF sample -> Russian roulette.
+  closest hit (ops/trace kernel) -> environment / ambient on miss with
+  MIS -> surface reconstruction by primitive type -> glass/translucent
+  stochastic transmission -> 3 cone lights with the fused 3-direction
+  shadow fan and MIS -> env NEE (CDF-sampled direction, occlusion, MIS)
+  -> GGX/cosine BRDF sample -> Russian roulette.
 
 Per-ray vectors are component triples of [B] tensors (ops/vec3.py) and
 RNG draws stay in the reference's order, so a frame matches the JAX
 package's frame sample for sample up to f32 rounding.
 
-Not ported yet, and raising NotImplementedError when asked for:
-environment lighting (env miss and env NEE), the volume march,
-visualisation modes 1-3, the stack tracer and the brute-force
-(use_bvh=False) sweep. The binned/permuted transports wait for a later
+Not ported yet, and raising NotImplementedError when asked for: the
+volume march, visualisation modes 1-3, the stack tracer and the
+brute-force (use_bvh=False) sweep. The binned/permuted transports wait for a later
 slice; per-ray results do not depend on batching.
 
 Skip gates: where the JAX package skips work with
@@ -34,20 +34,20 @@ import torch
 from ..ops import brdf as B
 from ..ops import sampling as S
 from ..ops import vec3 as V
+from ..ops.envmap import env_pdf_v3, sample_env_direction_v3, sample_env_radiance_v3
 from ..ops.rng import init_seed, rand, rand2
-from ..ops.wavefront import HitRecord, wf_trace_any3_v3, wf_trace_closest_v3
+from ..ops.wavefront import (HitRecord, wf_trace_any3_v3, wf_trace_any_v3,
+                             wf_trace_closest_v3)
 from ..scene.bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
 
 BIG = float(np.float32(1e20))
 RADIANCE_CLAMP = 100.0
+NEE_CLAMP = 20.0
 THROUGHPUT_CLAMP = 10.0
 
 
 def check_supported(flags) -> None:
     """Raise for settings whose code paths are not ported yet."""
-    if flags.use_env:
-        raise NotImplementedError(
-            "environment lighting (env miss and env NEE) is not ported yet")
     if flags.volume_enabled:
         raise NotImplementedError("the volume march is not ported yet")
     if flags.vis_mode != 0:
@@ -77,12 +77,25 @@ def _miss_record(n, device) -> HitRecord:
     )
 
 
-def _closest_hit(scene, flags, o3, d3, t_min, clip, active=None, impl=None):
-    """Closest-hit trace, skipped when no lane is active (host sync)."""
+def _closest_hit(scene, flags, o3, d3, t_min, clip, active=None,
+                 secondary=False, impl=None):
+    """Closest-hit trace, skipped when no lane is active (host sync).
+    secondary marks bounce rays (per-ray routing on cluster-rich scenes)."""
     if active is not None and not bool(active.any()):
         return _miss_record(o3[0].shape[0], o3[0].device)
     return wf_trace_closest_v3(scene, o3, d3, t_min, clip, active=active,
-                               impl=impl)
+                               secondary=secondary, impl=impl)
+
+
+def _any_hit(scene, flags, o3, d3, t_min, clip, accept_min=None, t_max=BIG,
+             active=None, divergent=False, impl=None):
+    """Single-direction occlusion, skipped when no candidate is live
+    (host sync). divergent marks env-NEE batches (per-ray routing)."""
+    if active is not None and not bool(active.any()):
+        return torch.zeros(o3[0].shape, dtype=torch.bool, device=o3[0].device)
+    return wf_trace_any_v3(scene, o3, d3, t_min, t_max=t_max,
+                           accept_min=accept_min, clip=clip, active=active,
+                           divergent=divergent, impl=impl)
 
 
 def _any_hit3(scene, flags, o3, d3s, t_min, clip, accept_min, actives,
@@ -219,10 +232,13 @@ class PathState:
     noccl: torch.Tensor       # any-hit occlusion candidates traced
 
 
-def _make_bounce_step(scene, flags, u, n, impl=None):
+def _make_bounce_step(scene, env, flags, u, n, impl=None):
     """Factory for ONE path-trace bounce over a flat [n] ray batch:
-    bounce_body(bounce: int, state) -> state."""
+    bounce_body(bounce: int, state) -> state. env: EnvBuffers when
+    flags.use_env."""
     check_supported(flags)
+    if flags.use_env and env is None:
+        raise ValueError("flags.use_env is set but no environment was given")
     bias = torch.clamp_min(u.ray_bias, 1e-4)
     clip = _clip_tuple(flags, u)
     ambient = V.splat(u.ambient_color)
@@ -230,13 +246,23 @@ def _make_bounce_step(scene, flags, u, n, impl=None):
     def bounce_body(bounce: int, st: PathState) -> PathState:
         st.nrays = st.nrays + st.alive.sum()
         rec = _closest_hit(scene, flags, st.origin, st.direction, u.t_min,
-                           clip, active=st.alive, impl=impl)
+                           clip, active=st.alive, secondary=bounce > 0,
+                           impl=impl)
         hit = rec.prim_type >= 0
 
-        # --- ambient on miss (no environment map on this path) ---
+        # --- environment / ambient on miss, MIS against BRDF sampling ---
         env_contrib = V.scale(ambient, u.ambient_intensity)
+        mis_w = 1.0
+        if flags.use_env:
+            env_contrib = V.add(env_contrib, sample_env_radiance_v3(
+                env, st.direction, u.env_intensity, u.env_max_luminance))
+            if bounce > 0:
+                mis_w = torch.where(
+                    st.last_pdf > 0.0,
+                    S.power_heuristic(st.last_pdf, env_pdf_v3(env, st.direction)),
+                    1.0)
         miss = st.alive & ~hit
-        add = V.mul(st.throughput, env_contrib)
+        add = V.scale(V.mul(st.throughput, env_contrib), mis_w)
         # In place: the radiance triple is owned by this state.
         for c in range(3):
             st.radiance[c].add_(torch.where(miss, add[c], 0.0))
@@ -353,6 +379,34 @@ def _make_bounce_step(scene, flags, u, n, impl=None):
             for c in range(3):
                 radiance[c].add_(torch.where(shade_lane, rim_add[c], 0.0))
 
+        # --- env NEE with MIS ---
+        if flags.use_env:
+            seed, env_dir, env_spdf = sample_env_direction_v3(env, seed)
+            ndl_e = V.dot(sn, env_dir)
+            candidate = shade_lane & (ndl_e > 0.0)
+            noccl = noccl + candidate.sum()
+            occluded = _any_hit(scene, flags, shadow_origin, env_dir, u.t_min,
+                                clip, active=candidate, divergent=True, impl=impl)
+            open_sky = candidate & ~occluded
+            spec, f = _ggx_eval(sn, v, env_dir, rough, f0)
+            diff = B.eval_diffuse_brdf_v3(sn, v, env_dir, base_color, diff_rough, wrap)
+            diff = V.scale(diff, 1.0 - metallic)
+            one_minus_f = (1.0 - f[0], 1.0 - f[1], 1.0 - f[2])
+            brdf_val = V.add(spec, V.mul(diff, one_minus_f))
+            env_rad = sample_env_radiance_v3(env, env_dir, u.env_intensity,
+                                             u.env_max_luminance)
+            spec_prob = B.spec_probability_v3(f0, base_color, metallic)
+            pdf_b = B.brdf_pdf_v3(sn, v, env_dir, rough, spec_prob)
+            mis = S.power_heuristic(env_spdf, pdf_b)
+            w = torch.clamp_min(ndl_e, 0.0) * mis / torch.clamp_min(env_spdf, 1e-6)
+            contrib = V.scale(V.mul(V.mul(throughput, brdf_val), env_rad), w)
+            mx = V.max_component(contrib)
+            cscale = torch.where(mx > NEE_CLAMP,
+                                 NEE_CLAMP / torch.clamp_min(mx, 1e-12), 1.0)
+            contrib = V.scale(contrib, cscale)
+            for c in range(3):
+                radiance[c].add_(torch.where(open_sky, contrib[c], 0.0))
+
         # --- BRDF sampling ---
         spec_w = V.max_component(f0)
         diff_w = (1.0 - metallic) * V.max_component(base_color)
@@ -448,39 +502,15 @@ def _fan_query(light_samples, n, device):
     return d3s, acts
 
 
-def primary_shadow_fan(scene, flags, u, px, py, frame_index, impl=None):
-    """The shadow-fan query the first bounce of a metallic or matte frame
-    traces: (origin triple, direction triples, t_min, accept_min [N],
-    candidate masks, clip). Lets a caller time or compare trace_any3 at
-    the main path's shapes without running the whole frame."""
-    check_supported(flags)
-    if flags.material_mode in (2, 3):
-        raise NotImplementedError("glass modes draw before the light samples")
-    n = px.shape[0]
-    clip = _clip_tuple(flags, u)
-    seed, origin, direction = generate_camera_rays(u, flags, px, py,
-                                                   frame_index, 0)
-    rec = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
-                       impl=impl)
-    hit = rec.prim_type >= 0
-    pos = V.add(origin, V.scale(direction, rec.t))
-    n_geom, sn, _, _ = _surface_attributes(scene, flags, rec, pos, direction, u)
-    bias = torch.clamp_min(u.ray_bias, 1e-4)
-    _, samples = _sample_lights(flags, u, sn, hit, seed, n)
-    d3s, acts = _fan_query(samples, n, px.device)
-    shadow_origin = V.add(pos, V.scale(n_geom, bias))
-    accept_min = torch.maximum(bias, u.t_min).expand(n)
-    return shadow_origin, d3s, u.t_min, accept_min, acts, clip
-
-
-def trace_paths(scene, flags, u, origin0, dir0, seed0, impl=None):
+def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None):
     """Full path trace for a flat ray batch of component-triple rays.
     Returns (radiance triple, seed, (path_rays, occl_rays)): path_rays
     counts closest-hit extension segments (camera + bounces), occl_rays
-    the any-hit shadow candidates, as 0-d int64 tensors."""
+    the any-hit shadow candidates (cone lights and env NEE), as 0-d int64
+    tensors. env: EnvBuffers, required when flags.use_env."""
     n = origin0[0].shape[0]
     device = origin0[0].device
-    bounce_body = _make_bounce_step(scene, flags, u, n, impl=impl)
+    bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl)
 
     def ones():
         return torch.ones((n,), dtype=torch.float32, device=device)
@@ -548,7 +578,7 @@ def generate_camera_rays(u, flags, px, py, frame_index, sample_index):
     return seed, origin, direction
 
 
-def render_batch_stats(scene, flags, u, px, py, frame_index, impl=None):
+def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None):
     """One progressive sample set per pixel -> (colour f32[B,3], (path
     rays, occlusion rays)). Exposure is applied before accumulation."""
     device = px.device
@@ -559,12 +589,13 @@ def render_batch_stats(scene, flags, u, px, py, frame_index, impl=None):
         seed, origin, direction = generate_camera_rays(u, flags, px, py,
                                                        frame_index, s)
         radiance, _, nrays = trace_paths(scene, flags, u, origin, direction,
-                                         seed, impl=impl)
+                                         seed, env=env, impl=impl)
         total = V.add(total, radiance)
         rays = (rays[0] + nrays[0], rays[1] + nrays[1])
     return V.to_array(V.scale(total, u.exposure / flags.spp)), rays
 
 
-def render_batch(scene, flags, u, px, py, frame_index, impl=None):
+def render_batch(scene, flags, u, px, py, frame_index, env=None, impl=None):
     """One progressive sample set per pixel -> colour f32[B,3]."""
-    return render_batch_stats(scene, flags, u, px, py, frame_index, impl=impl)[0]
+    return render_batch_stats(scene, flags, u, px, py, frame_index, env=env,
+                              impl=impl)[0]

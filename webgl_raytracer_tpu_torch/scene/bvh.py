@@ -3,10 +3,10 @@
 Counterpart of webgl_raytracer_tpu/scene/bvh.py: 8 SAH bins, per-type
 primitive bounds (cylinder AABB from its axis plus 1e-3 padding), a 3-axis
 SAH sweep, a median-split fallback when a split leaves a side empty, and a
-preorder flat layout. The native C++ builder is shared with the JAX
-package (webgl_raytracer_tpu.native, loaded through ctypes); the numpy
-builder below is the same fallback, so both packages produce identical
-prim_order / node tables from identical inputs.
+preorder flat layout. The native C++ builder is the port's own copy of
+the JAX package's (csrc/bvh_builder.cpp, built by scene/native.py); the
+numpy builder below is the same fallback, so both packages produce
+identical prim_order / node tables from identical inputs.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from webgl_raytracer_tpu.native import load_bvh_builder
+from .native import load_bvh_builder
 
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1

@@ -23,8 +23,8 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from webgl_raytracer_tpu.models.molecular import Geometry
-
+from ..device import resolve_device
+from ..models import Geometry
 from .bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE, build_bvh
 
 # Tensor fields of SceneBuffers (the rest are python ints).
@@ -67,12 +67,12 @@ class SceneBuffers:
         return scene_operands(self)
 
 
-def scene_from_numpy(fields_: dict, device="cpu") -> SceneBuffers:
+def scene_from_numpy(fields_: dict, device=None) -> SceneBuffers:
     """SceneBuffers from the JAX package's SceneBuffers fields as numpy
     arrays (what its compile_scene returns before device_put) — carries an
     identical scene into the port. Fields this package does not use are
-    ignored."""
-    device = torch.device(device)
+    ignored. device None means cuda:0."""
+    device = resolve_device(device)
     tensors = {name: torch.tensor(np.asarray(fields_[name], np.float32),
                                   device=device)
                for name in TENSOR_FIELDS}
@@ -89,11 +89,12 @@ def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
 
 def compile_scene(geometry: Geometry | None = None, tri_verts=None,
                   tri_normals=None, tri_colors=None, tri_flags=None,
-                  cluster_size: int = 128, device="cpu") -> SceneBuffers:
+                  cluster_size: int = 128, device=None) -> SceneBuffers:
     """Spheres/cylinders (from Geometry) + an optional triangle mesh ->
-    SceneBuffers on `device`. tri_verts f32[Nt,3,3]; tri_normals
-    f32[Nt,3,3] (per-vertex, default face normals); tri_colors f32[Nt,3];
-    tri_flags f32[Nt]."""
+    SceneBuffers on `device` (None: cuda:0; raises without a GPU).
+    tri_verts f32[Nt,3,3]; tri_normals f32[Nt,3,3] (per-vertex, default
+    face normals); tri_colors f32[Nt,3]; tri_flags f32[Nt]."""
+    device = resolve_device(device)
     z3 = np.zeros((0, 3), np.float32)
     z1 = np.zeros((0,), np.float32)
     if geometry is None:

@@ -1,13 +1,11 @@
 """Scene geometry sources: the benchmark's random-sphere scenes and the
-bundled molecules (parsed by webgl_raytracer_tpu.models, which is host
-numpy and shared with the JAX package)."""
+bundled molecules (the port's models/ package)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from webgl_raytracer_tpu.models import get_builtin_molecule, molecule_to_geometry
-from webgl_raytracer_tpu.models.molecular import Geometry
+from ..models import Geometry, get_builtin_molecule, molecule_to_geometry
 
 
 def random_sphere_geometry(count: int, seed: int = 12345) -> Geometry:
