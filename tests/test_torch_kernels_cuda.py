@@ -159,3 +159,68 @@ def test_sky_frame_kernel_matches_plain(device):
     assert T.launches["trace_any_perray"] > before["trace_any_perray"]
     assert torch.equal(images[0], images[1])
     assert float(images[0].mean()) > 0.0
+
+
+@pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
+                         ids=["noclip", "clip"])
+def test_trace_closest_attrs_kernel_matches_plain_and_closest(scene, device, clip):
+    """The attrs kernel: t and all 32 columns bit for bit against its plain
+    version; t and the winning slot against the trace_closest kernel."""
+    o3, d3s, acts, tmin = _fan(1 << 16, 29, device)
+    before = dict(T.launches)
+    tk, ak = T.trace_closest_attrs(scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+    assert T.launches["trace_closest_attrs"] == before["trace_closest_attrs"] + 1
+    tp, ap = T.trace_closest_attrs(scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
+                                   impl="plain")
+    tc, rc = T.trace_closest(scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+    assert T.launches["trace_closest_attrs"] == before["trace_closest_attrs"] + 1
+    slot = T.attr_slot(ak)
+    assert int((slot >= 0).sum()) > 100
+    assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+    assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
+    assert torch.equal(tk.view(torch.int32), tc.view(torch.int32))
+    assert torch.equal(slot, rc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sweep_sol_kernel_matches_plain(device, dtype):
+    """The probe: f32 bit for bit; bf16 within chip_smoke.py's stated
+    tolerance (at most 1% of rows differ, each within 2^-6 relative)."""
+    from webgl_raytracer_tpu_torch.tools import sweep_sol as SW
+
+    a, s = SW.probe_inputs(device)
+    before = SW.launches["sweep_sol"]
+    k = SW.sweep_sol(a, s, 16, dtype)
+    assert SW.launches["sweep_sol"] == before + 1
+    p = SW.sweep_sol(a, s, 16, dtype, impl="plain")
+    assert int((p < 1e19).sum()) > 512
+    if dtype == torch.float32:
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    else:
+        rel = (k - p).abs() / p.abs().clamp_min(1e-30)
+        assert float(rel.max()) <= 2.0 ** -6
+        assert int((k != p).sum()) <= 0.01 * k.numel()
+
+
+@pytest.mark.parametrize("knobs", [{}, {"WRT_ATTRS": "1"}], ids=["binned", "attrs"])
+def test_chunked_frame_equals_whole_batch(device, knobs, monkeypatch):
+    """A 128x128 frame in four chunks (binned, or permuted with attrs rows)
+    equals the whole-batch frame bit for bit, ray counts included."""
+    from webgl_raytracer_tpu_torch.render.integrator import render_batch_stats
+
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    r = Renderer(scene, width=128, height=128, device=device)
+    flags, u, px, py = r.frame_inputs()
+    out = {}
+    for name, chunks in (("whole", "1"), ("chunked", "4")):
+        monkeypatch.setenv("WRT_CHUNKS", chunks)
+        for k, v in knobs.items():
+            monkeypatch.setenv(k, v)
+        before = dict(T.launches)
+        c, (nr, no) = render_batch_stats(scene, flags, u, px, py, 0)
+        out[name] = (c, int(nr), int(no), {k: T.launches[k] - before[k] for k in before})
+    assert torch.equal(out["whole"][0], out["chunked"][0])
+    assert out["whole"][1:3] == out["chunked"][1:3]
+    if knobs:
+        assert out["chunked"][3]["trace_closest_attrs"] > 0
+        assert out["chunked"][3]["trace_closest"] == 0

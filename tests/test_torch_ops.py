@@ -118,3 +118,35 @@ def test_op_matches_jax(case):
         assert r.shape == g.shape or r.size == g.size == 1
         np.testing.assert_allclose(g.astype(np.float64), r.astype(np.float64),
                                    rtol=1e-6, atol=1e-6)
+
+
+def test_sqrt_correctly_rounded_on_cpu():
+    """vec3.sqrt on CPU f32 tensors is the correctly rounded square root,
+    float32(sqrt(float64(x))), as numpy, JAX and the kernels' IEEE sqrtf
+    give it; torch's own vectorised f32 sqrt is not on every CPU."""
+    x = np.concatenate([_rng.random(N) * 4.0, _rng.random(N) * 1e-6,
+                        _rng.random(N) * 1e6]).astype(np.float32)
+    got = PV.sqrt(torch.as_tensor(x)).numpy()
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(got, np.sqrt(x))
+
+
+MATH = [("sqrt", PV.sqrt, 1), ("pow", PV.pow, 2), ("exp", PV.exp, 1),
+        ("cos", PV.cos, 1), ("sin", PV.sin, 1), ("tan", PV.tan, 1),
+        ("acos", PV.acos, 1), ("atan2", PV.atan2, 2)]
+
+
+@pytest.mark.parametrize("name,fn,arity", MATH, ids=[m[0] for m in MATH])
+def test_math_rounds_independently_of_lane_position(name, fn, arity):
+    """The transports shade a lane at another position of the batch than
+    the whole-batch frame does; each helper must round a value the same
+    wherever it sits (torch's CPU f32 pow and atan2 do not), and round as
+    float64 rounded once does."""
+    args = [torch.as_tensor(_uniform(0.01, 0.99)) for _ in range(arity)]
+    full = fn(*args)
+    for shift in (1, 3, 5, 7, 17):
+        assert torch.equal(fn(*(a[shift:] for a in args)), full[shift:]), shift
+    want = getattr(torch, name)(*(a.double() for a in args)).float()
+    assert torch.equal(full, want)

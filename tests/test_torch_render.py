@@ -177,7 +177,8 @@ def test_unported_paths_raise(setting):
 def test_port_imports_and_renders_without_jax():
     """With the JAX package blocked, the port builds the caffeine and
     random-sphere scenes and renders them (one under a sky) on the CPU,
-    and loads no module of JAX or of the JAX package."""
+    then a 64x64 frame in four chunks through the binned transport, imports
+    the sweep probe, and loads no module of JAX or of the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['webgl_raytracer_tpu'] = None\n"
@@ -191,6 +192,15 @@ def test_port_imports_and_renders_without_jax():
         "                 device='cpu')\n"
         "    img = r.render(1)\n"
         "    assert img.shape == (16, 16, 3) and img.mean() > 0\n"
+        "import os\n"
+        "import webgl_raytracer_tpu_torch.tools.sweep_sol\n"
+        "from webgl_raytracer_tpu_torch.render import integrator\n"
+        "os.environ['WRT_CHUNKS'] = '4'\n"
+        "binned, real = [], integrator._binned_transport\n"
+        "integrator._binned_transport = lambda *a, **k: binned.append(1) or real(*a, **k)\n"
+        "r = Renderer(compile_scene(random_sphere_geometry(300), device='cpu'), width=64,\n"
+        "             height=64, device='cpu')\n"
+        "assert r.render(1).mean() > 0 and binned\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or (m.split('.')[0] == 'webgl_raytracer_tpu' and sys.modules[m] is not None))\n"
         "assert not bad, bad\n"

@@ -16,6 +16,8 @@ tests/test_torch_kernels_cuda.py compares them with the plain versions
 there and skips elsewhere.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,3 +188,60 @@ def test_cpu_tensors_never_launch(scenes):
     with pytest.raises(ValueError):
         T.trace_closest(ps, _p3(o), _p3(ds[0]), torch.as_tensor(tmin), impl="cuda")
 
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("clip", [None, CLIP], ids=["noclip", "clip"])
+def test_trace_closest_attrs_plain_matches_pallas(scenes, clip, masked):
+    """The attrs walk's plain version against the Pallas attrs kernel in
+    interpret mode: slot column and every attribute column exactly (the
+    JAX kernel extracts the row with an exact one-hot product), t within
+    T_RTOL; and against the JAX package's gather_attr_rows of the same
+    winners, which the plain version's gather must equal."""
+    js, ps = scenes
+    o, ds, acts, tmin = _fan(1500, 29)
+    act = acts[1] if masked else None
+    jt, ja = PS.trace_closest_attrs(js, _j3(o), _j3(ds[0]), jnp.asarray(tmin),
+                                    clip=_jclip(clip),
+                                    active=None if act is None else jnp.asarray(act),
+                                    interpret=True)
+    pt, pa = T.trace_closest_attrs(ps, _p3(o), _p3(ds[0]), torch.as_tensor(tmin),
+                                   clip=clip,
+                                   active=None if act is None else torch.as_tensor(act))
+    ja, pa = np.asarray(ja), pa.numpy()
+    hit = pa[:, 11] >= 0
+    assert hit.sum() > 50
+    assert np.array_equal(ja, pa)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(jt), rtol=T_RTOL)
+    # Misses, inactive lanes included: zeros, column 11 = -1, t = BIG.
+    assert (pa[~hit, 11] == -1.0).all() and (np.delete(pa[~hit], 11, axis=1) == 0).all()
+    assert (pt.numpy()[~hit] == np.float32(1e20)).all()
+    # The plain walk is trace_closest's walk, and its rows are the gather.
+    tt, tr = T.trace_closest(ps, _p3(o), _p3(ds[0]), torch.as_tensor(tmin), clip=clip,
+                             active=None if act is None else torch.as_tensor(act))
+    assert torch.equal(pt, tt)
+    assert np.array_equal(np.where(hit, pa[:, 28].astype(np.int64), -1), tr.numpy())
+    jrec = JW._finalize_hit(js, _j3(o), _j3(ds[0]), jnp.asarray(tmin), None,
+                            jnp.asarray(tt.numpy()), jnp.asarray(tr.numpy()),
+                            cost=jnp.zeros(1500, jnp.int32))
+    # As device arrays, as the JAX package holds them: its gathers clamp
+    # the side-table index of non-triangle lanes.
+    jsd = dataclasses.replace(js, tri_normals=jnp.asarray(js.tri_normals),
+                              tri_flags=jnp.asarray(js.tri_flags))
+    assert np.array_equal(np.asarray(JW.gather_attr_rows(jsd, jrec)), pa)
+
+
+def test_finalize_hit_row_equals_gather(scenes):
+    """_finalize_hit with the attrs kernel's rows equals _finalize_hit
+    with its own gather, field by field, bit for bit."""
+    _, ps = scenes
+    o, ds, acts, tmin = _fan(1500, 31)
+    args = (ps, _p3(o), _p3(ds[0]), torch.as_tensor(tmin), None)
+    t, attrs = T.trace_closest_attrs(ps, *args[1:4], active=torch.as_tensor(acts[0]))
+    slot = T.attr_slot(attrs)
+    a = PW._finalize_hit(*args, t, slot, cost=None, refine_sphere_t=True,
+                         row=attrs[:, :12])
+    b = PW._finalize_hit(*args, t, slot, cost=None, refine_sphere_t=True)
+    assert int((slot >= 0).sum()) > 50
+    for f in ("t", "prim_type", "prim_local", "prim_slot", "extra"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f

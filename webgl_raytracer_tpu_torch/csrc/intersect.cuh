@@ -1,6 +1,6 @@
 // Per-ray cluster tracing maths shared by the trace kernels
-// (trace_closest.cu, trace_any3.cu, trace_any.cu, trace_closest_perray.cu,
-// trace_any_perray.cu).
+// (trace_closest.cu, trace_closest_attrs.cu, trace_any3.cu, trace_any.cu,
+// trace_closest_perray.cu, trace_any_perray.cu).
 //
 // Every expression here is the one in ops/wavefront.py (cluster_entry_t,
 // intersect_soa_t), written in the same operation order with float
@@ -224,6 +224,65 @@ __device__ __forceinline__ void stage_cluster(float* rows, const float* soa,
   for (int e = threadIdx.x; e < kClusterFloats; e += blockDim.x) {
     rows[e] = src[e];
   }
+}
+
+// The block walk of trace_closest.cu and trace_closest_attrs.cu for ray i
+// (one thread per ray; od f32[8,n]: d xyz, centred o xyz, t_min, active).
+// A ray that misses the root AABB (cp[8..13]) or is inactive is a miss.
+// Otherwise it walks the k clusters in index order and sweeps a cluster's
+// 128 primitives only when it enters the cluster's AABB before its current
+// best t; the block stages that cluster's rows in `rows` (shared memory,
+// kClusterFloats) whenever any of its threads needs them. The per-lane
+// update `ts > 0 && ts < best` in increasing row order yields the
+// lexicographic minimum of (t, row). Every thread of the block must call
+// it (it synchronises), i >= n included. Returns best t (kBig on a miss)
+// and sets best_row (-1 on a miss).
+__device__ __forceinline__ float closest_block_walk(
+    float* rows, const float* __restrict__ od, long long n, long long i,
+    const float* __restrict__ soa, const float* __restrict__ box,
+    const int* __restrict__ ct, int k, const float* __restrict__ cp,
+    int clip_on, int& best_row) {
+  Ray r{};
+  bool act = false;
+  if (i < n) {
+    r.dx = od[i];
+    r.dy = od[n + i];
+    r.dz = od[2 * n + i];
+    r.ox = od[3 * n + i];
+    r.oy = od[4 * n + i];
+    r.oz = od[5 * n + i];
+    r.tmin = od[6 * n + i];
+    act = od[7 * n + i] > 0.0f;
+  }
+  // Root gate: missing the scene box implies missing every cluster box.
+  act = act && slab_entry(cp + 8, r) < INFINITY;
+  const Clip clip = load_clip(cp, clip_on);
+
+  float best = kBig;
+  best_row = -1;
+  for (int c = 0; c < k; ++c) {
+    const bool need = act && slab_entry(box + 6 * c, r) < best;
+    if (!__syncthreads_or(need)) {
+      continue;
+    }
+    stage_cluster(rows, soa, c);
+    __syncthreads();
+    if (need) {
+      const int ctype = ct[c];
+      for (int j = 0; j < kLanes; ++j) {
+        const float ts = prim_t(rows, j, ctype, r, clip);
+        if (ts > 0.0f && ts < best) {
+          best = ts;
+          best_row = c * kLanes + j;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!(best < kBig)) {
+    best_row = -1;
+  }
+  return best;
 }
 
 // The per-ray walk of trace_closest_perray.cu and trace_any_perray.cu:

@@ -5,13 +5,10 @@
 // webgl_raytracer_tpu/ops/pallas_trace.py. Plain version and semantics:
 // ops/trace.py (closest_plain, trace_closest).
 //
-// Design: one thread per ray, kThreads rays per block. A ray that misses
-// the scene's root AABB (or is inactive) is a miss. Otherwise it walks the
-// K clusters in index order and sweeps a cluster's 128 primitives only
-// when it enters the cluster's AABB before its current best t; the block
-// stages that cluster's 12x128 rows (6 KB) in shared memory whenever any
-// of its threads needs them. The per-lane update `ts > 0 && ts < best` in
-// increasing row order yields the lexicographic minimum of (t, row).
+// Design: one thread per ray, kThreads rays per block, walking the clusters
+// in index order with block-staged rows (6 KB of shared memory per
+// cluster): wrt::closest_block_walk in intersect.cuh, shared with
+// trace_closest_attrs.cu.
 //
 // Operands (all device pointers, contiguous):
 //   od   f32[8,n]  rows: d xyz, centred o xyz, t_min, active (1/0)
@@ -34,48 +31,12 @@ trace_closest_kernel(const float* __restrict__ od, long long n,
                      float* __restrict__ t_out, int* __restrict__ row_out) {
   __shared__ float rows[wrt::kClusterFloats];
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool in_range = i < n;
-
-  wrt::Ray r{};
-  bool act = false;
-  if (in_range) {
-    r.dx = od[i];
-    r.dy = od[n + i];
-    r.dz = od[2 * n + i];
-    r.ox = od[3 * n + i];
-    r.oy = od[4 * n + i];
-    r.oz = od[5 * n + i];
-    r.tmin = od[6 * n + i];
-    act = od[7 * n + i] > 0.0f;
-  }
-  // Root gate: missing the scene box implies missing every cluster box.
-  act = act && wrt::slab_entry(cp + 8, r) < INFINITY;
-  const wrt::Clip clip = wrt::load_clip(cp, clip_on);
-
-  float best = wrt::kBig;
-  int best_row = -1;
-  for (int c = 0; c < k; ++c) {
-    const bool need = act && wrt::slab_entry(box + 6 * c, r) < best;
-    if (!__syncthreads_or(need)) {
-      continue;
-    }
-    wrt::stage_cluster(rows, soa, c);
-    __syncthreads();
-    if (need) {
-      const int ctype = ct[c];
-      for (int j = 0; j < wrt::kLanes; ++j) {
-        const float ts = wrt::prim_t(rows, j, ctype, r, clip);
-        if (ts > 0.0f && ts < best) {
-          best = ts;
-          best_row = c * wrt::kLanes + j;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (in_range) {
+  int best_row;
+  const float best = wrt::closest_block_walk(rows, od, n, i, soa, box, ct, k, cp,
+                                             clip_on, best_row);
+  if (i < n) {
     t_out[i] = best;
-    row_out[i] = best < wrt::kBig ? best_row : -1;
+    row_out[i] = best_row;
   }
 }
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import vec3 as V
 from ..ops.envmap import EnvBuffers
 
 
@@ -24,7 +25,7 @@ def _build_cdfs(radiance: torch.Tensor):
     device = radiance.device
     theta = ((torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
              * math.pi)
-    sin_theta = torch.sin(theta)
+    sin_theta = V.sin(theta)
     lum = (radiance[..., 0] * 0.2126 + radiance[..., 1] * 0.7152
            + radiance[..., 2] * 0.0722) * sin_theta[:, None]
     row_sums = lum.sum(dim=1)

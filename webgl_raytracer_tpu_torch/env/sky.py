@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import vec3 as V
 
 ANALYTIC_SKY_ID = "analytic://preetham-perez"
 
@@ -89,10 +90,10 @@ def compute_sun_direction(sun_azimuth_deg: float, sun_elevation_deg: float) -> n
 
 def _perez(coeffs, theta, gamma):
     a, b, c, d, e = coeffs
-    cos_theta = torch.clamp_min(torch.cos(theta), 0.01)
-    part1 = 1.0 + a * torch.exp(b / cos_theta)
-    cos_gamma = torch.cos(gamma)
-    part2 = 1.0 + c * torch.exp(d * gamma) + e * cos_gamma * cos_gamma
+    cos_theta = torch.clamp_min(V.cos(theta), 0.01)
+    part1 = 1.0 + a * V.exp(b / cos_theta)
+    cos_gamma = V.cos(gamma)
+    part2 = 1.0 + c * V.exp(d * gamma) + e * cos_gamma * cos_gamma
     return part1 * part2
 
 
@@ -113,7 +114,7 @@ def _coeff_yy(t):
 
 def _zenith_luminance(t, theta_s):
     chi = (4.0 / 9.0 - t / 120.0) * (math.pi - 2.0 * theta_s)
-    yz = (4.0453 * t - 4.9710) * torch.tan(chi) - 0.2155 * t + 2.4192
+    yz = (4.0453 * t - 4.9710) * V.tan(chi) - 0.2155 * t + 2.4192
     return torch.clamp_min(yz, 0.001)
 
 
@@ -160,17 +161,17 @@ def sky_image(s: AnalyticSkySettings, device=None) -> torch.Tensor:
     v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
     phi = u[None, :] * (2.0 * math.pi)
     theta = v[:, None] * math.pi
-    sin_theta = torch.sin(theta)
+    sin_theta = V.sin(theta)
     dirs = torch.stack([
-        torch.cos(phi) * sin_theta,
-        torch.cos(theta).expand(height, width),
-        torch.sin(phi) * sin_theta,
+        V.cos(phi) * sin_theta,
+        V.cos(theta).expand(height, width),
+        V.sin(phi) * sin_theta,
     ], dim=-1)
 
     sun_dir = f32(compute_sun_direction(s.sun_azimuth_deg, s.sun_elevation_deg))
     sun = sun_dir / torch.linalg.vector_norm(sun_dir)
-    theta_s = torch.acos(torch.clamp(sun[1], -1.0, 1.0))
-    gamma = torch.acos(torch.clamp((dirs * sun).sum(dim=-1), -1.0, 1.0))
+    theta_s = V.acos(torch.clamp(sun[1], -1.0, 1.0))
+    gamma = V.acos(torch.clamp((dirs * sun).sum(dim=-1), -1.0, 1.0))
 
     t = torch.clamp_min(f32(s.turbidity), 1.0)
     cy = _coeff_y(t)
@@ -207,7 +208,7 @@ def sky_image(s: AnalyticSkySettings, device=None) -> torch.Tensor:
     rgb = torch.where(below[..., None], mixed, rgb)
 
     sun_sigma = torch.clamp_min(f32(math.radians(s.sun_angular_radius_deg)), 1e-4)
-    glow = torch.exp(-0.5 * torch.square(gamma / sun_sigma))
+    glow = V.exp(-0.5 * torch.square(gamma / sun_sigma))
     rgb = rgb + (f32(s.sun_intensity) * glow)[..., None]
     return torch.clamp_min(rgb, 0.0)
 

@@ -22,7 +22,7 @@ def wrap_ndotl(ndotl, wrap):
 
 def fresnel_schlick(cos_theta, f0):
     """Schlick Fresnel with a scalar (or per-lane) f0."""
-    w = torch.pow(torch.clamp(1.0 - cos_theta, 0.0, 1.0), 5.0)
+    w = V.pow(torch.clamp(1.0 - cos_theta, 0.0, 1.0), 5.0)
     return f0 + (1.0 - f0) * w
 
 
@@ -49,8 +49,8 @@ def oren_nayar_diffuse_v3(n, v, l, base_color, sigma):
     sigma2 = sigma * sigma
     a = 1.0 - 0.5 * (sigma2 / (sigma2 + 0.33))
     b = 0.45 * (sigma2 / (sigma2 + 0.09))
-    sin_l = torch.sqrt(torch.clamp_min(1.0 - ndl * ndl, 0.0))
-    sin_v = torch.sqrt(torch.clamp_min(1.0 - ndv * ndv, 0.0))
+    sin_l = V.sqrt(torch.clamp_min(1.0 - ndl * ndl, 0.0))
+    sin_v = V.sqrt(torch.clamp_min(1.0 - ndv * ndv, 0.0))
     tan_l = sin_l / torch.clamp_min(ndl, 1e-4)
     tan_v = sin_v / torch.clamp_min(ndv, 1e-4)
     sin_alpha = torch.maximum(sin_l, sin_v)
@@ -78,7 +78,7 @@ def eval_diffuse_brdf_v3(n, v, l, base_color, diff_rough, wrap):
 
 def fresnel_schlick_v3(cos_theta, f0):
     """f0 is a component triple; returns a triple."""
-    w = torch.pow(torch.clamp(1.0 - cos_theta, 0.0, 1.0), 5.0)
+    w = V.pow(torch.clamp(1.0 - cos_theta, 0.0, 1.0), 5.0)
     return (f0[0] + (1.0 - f0[0]) * w,
             f0[1] + (1.0 - f0[1]) * w,
             f0[2] + (1.0 - f0[2]) * w)
@@ -89,7 +89,7 @@ def refract_dir_v3(incident, normal, eta):
     cosi = torch.clamp(-V.dot(incident, normal), 0.0, 1.0)
     sin2 = eta * eta * (1.0 - cosi * cosi)
     can = sin2 <= 1.0
-    cost = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+    cost = V.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
     k = eta * cosi - cost
     return can, (eta * incident[0] + k * normal[0],
                  eta * incident[1] + k * normal[1],

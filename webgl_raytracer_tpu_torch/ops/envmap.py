@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import vec3 as V
 from .rng import rand2
 from .sampling import PI, TWO_PI
 
@@ -41,8 +42,8 @@ class EnvBuffers:
 
 
 def dir_to_uv_v3(d):
-    u = torch.atan2(d[2], d[0]) / TWO_PI + 0.5
-    v = torch.acos(torch.clamp(d[1], -1.0, 1.0)) / PI
+    u = V.atan2(d[2], d[0]) / TWO_PI + 0.5
+    v = V.acos(torch.clamp(d[1], -1.0, 1.0)) / PI
     return u, v
 
 
@@ -129,8 +130,8 @@ def sample_env_direction_v3(env: EnvBuffers, state):
 
     theta = v * PI
     phi = u * TWO_PI - PI
-    sin_t = torch.sin(theta)
-    d = (sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi))
+    sin_t = V.sin(theta)
+    d = (sin_t * V.cos(phi), V.cos(theta), sin_t * V.sin(phi))
 
     marginal_pdf = marg[v_idx + 1] - marg[v_idx]
     pdf_uv = marginal_pdf * h * conditional_pdf(cond, v_idx, u_float) * w
@@ -148,5 +149,5 @@ def env_pdf_v3(env: EnvBuffers, d):
     cond_pdf = env.conditional_cdf[v_idx, u_idx + 1] - env.conditional_cdf[v_idx, u_idx]
     pdf_uv = marginal_pdf * h * cond_pdf * w
     theta = v * PI
-    sin_t = torch.clamp_min(torch.sin(theta), 1e-4)
+    sin_t = torch.clamp_min(V.sin(theta), 1e-4)
     return torch.clamp_min(pdf_uv / (2.0 * PI * PI * sin_t), 1e-6)

@@ -25,8 +25,15 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
-           "trace_closest_perray.cu", "trace_any_perray.cu")
+           "trace_closest_perray.cu", "trace_any_perray.cu",
+           "trace_closest_attrs.cu", "sweep_sol.cu")
 HEADERS = ("intersect.cuh",)
+
+# Kernel launches by kernel name; only the wrappers' CUDA launch sites add
+# to them (ops/trace.py, tools/sweep_sol.py).
+launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
+                          "trace_closest_perray", "trace_any_perray",
+                          "trace_closest_attrs", "sweep_sol"), 0)
 
 # -fmad=false keeps every a*b+c rounded twice, as the plain PyTorch
 # versions round it, so the kernels' outputs match them bit for bit. No
@@ -123,6 +130,11 @@ def library() -> ctypes.CDLL:
     lib.wrt_trace_any_perray.restype = i32
     lib.wrt_trace_any_perray.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
                                          ptr, i32, ptr, ptr]
+    lib.wrt_trace_closest_attrs.restype = i32
+    lib.wrt_trace_closest_attrs.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                            ptr, ptr, ptr, ptr]
+    lib.wrt_sweep_sol.restype = i32
+    lib.wrt_sweep_sol.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
     return lib
 
 

@@ -21,9 +21,9 @@ TWO_PI = float(np.float32(2.0 * np.pi))
 
 def disk_from_uv(r1, r2):
     """Uniform unit disk: (x, y)."""
-    r = torch.sqrt(r1)
+    r = V.sqrt(r1)
     phi = TWO_PI * r2
-    return torch.cos(phi) * r, torch.sin(phi) * r
+    return V.cos(phi) * r, V.sin(phi) * r
 
 
 def sample_disk(state):
@@ -60,18 +60,18 @@ def to_world_v3(axis, lx, ly, lz):
 
 def cosine_hemisphere_from_uv_v3(normal, r1, r2):
     phi = TWO_PI * r1
-    cos_t = torch.sqrt(1.0 - r2)
-    sin_t = torch.sqrt(r2)
-    return to_world_v3(normal, torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t)
+    cos_t = V.sqrt(1.0 - r2)
+    sin_t = V.sqrt(r2)
+    return to_world_v3(normal, V.cos(phi) * sin_t, V.sin(phi) * sin_t, cos_t)
 
 
 def cone_from_uv_v3(axis, angle, r1, r2):
     """Uniform cone of half-angle `angle` about axis: (dir, pdf)."""
-    cos_max = torch.cos(angle)
+    cos_max = V.cos(angle)
     cos_t = cos_max + (1.0 - cos_max) * r1
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = V.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     phi = TWO_PI * r2
-    d = to_world_v3(axis, torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t)
+    d = to_world_v3(axis, V.cos(phi) * sin_t, V.sin(phi) * sin_t, cos_t)
     solid = torch.clamp_min(TWO_PI * (1.0 - cos_max), 1e-6)
     return d, 1.0 / solid
 
@@ -80,19 +80,19 @@ def ggx_half_vector_from_uv_v3(normal, roughness, r1, r2):
     a = roughness * roughness
     a2 = a * a
     phi = TWO_PI * r1
-    cos_t = torch.sqrt((1.0 - r2) / (1.0 + (a2 - 1.0) * r2))
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    return to_world_v3(normal, torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t)
+    cos_t = V.sqrt((1.0 - r2) / (1.0 + (a2 - 1.0) * r2))
+    sin_t = V.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    return to_world_v3(normal, V.cos(phi) * sin_t, V.sin(phi) * sin_t, cos_t)
 
 
 def reflect_from_uv_v3(direction, normal, roughness, r1, r2):
     """Mirror reflection blurred by a roughness-driven lobe."""
     r = V.reflect(direction, normal)
     phi = TWO_PI * r1
-    cos_t = torch.pow(1.0 - r2, 1.0 / (roughness * 4.0 + 1.0))
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    blurred = to_world_v3(V.normalize(r), torch.cos(phi) * sin_t,
-                          torch.sin(phi) * sin_t, cos_t)
+    cos_t = V.pow(1.0 - r2, 1.0 / (roughness * 4.0 + 1.0))
+    sin_t = V.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    blurred = to_world_v3(V.normalize(r), V.cos(phi) * sin_t,
+                          V.sin(phi) * sin_t, cos_t)
     smooth = torch.as_tensor(roughness <= 0.02)
     return V.where(smooth, V.normalize(r), blurred)
 

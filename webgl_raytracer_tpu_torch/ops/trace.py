@@ -14,6 +14,11 @@ trace_any
     Replaces `_make_any_kernel` (same file, reached through `trace_any`
     and `_grid_call`): occlusion of one ray per lane with t in
     (accept_min, t_max), the env-NEE shadow query.
+trace_closest_attrs
+    Replaces `_make_closest_attrs_kernel` (same file, reached through
+    `trace_closest_attrs` and `_grid_call_attrs`): the closest hit as
+    trace_closest finds it, plus the winner's 32-column attribute row
+    (attr_operand's layout), so that shading needs no gather.
 trace_closest_perray / trace_any_perray (trace_closest / trace_any with perray=True)
     Replace `_make_closest_kernel_perray` / `_make_any_kernel_perray`
     (same file, reached through `trace_closest` / `trace_any` with
@@ -77,6 +82,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .kernels import launches
 from .wavefront import BIG, INF, cluster_entry_t, intersect_soa_t, scene_types
 
 # Rays per plain-version chunk: keeps the [chunk, 128] temporaries of the
@@ -96,6 +102,7 @@ class TraceOperands:
     ctype_host: tuple      # the same, as python ints (plain version)
     root: torch.Tensor     # f32[6]: centred scene AABB
     types: tuple           # (has_spheres, has_cylinders, has_triangles)
+    attr: torch.Tensor     # f32[K*C,32]: attr_operand, the attrs kernel's table
 
 
 # Clusters per group of the per-ray kernels' two-level walk (the JAX
@@ -135,7 +142,37 @@ def scene_operands(scene) -> TraceOperands:
         soa=soa_c.contiguous(), box=box.contiguous(), gbox=gbox.contiguous(), mid=mid,
         ctype=ctype.contiguous(),
         ctype_host=tuple(int(c) for c in ctype.cpu().tolist()),
-        root=root, types=scene_types(scene))
+        root=root, types=scene_types(scene), attr=attr_operand(scene))
+
+
+ATTR_MISS_COL = 11      # attr row column holding the primitive type (-1: miss)
+ATTR_SLOT_COL = 28      # attr row column holding the flat slot as f32
+
+
+def attr_operand(scene) -> torch.Tensor:
+    """The attrs kernel's table f32[K*C, 32] (pallas_trace._attr_operand):
+    columns 0-11 the slot's cluster row in GLOBAL coordinates, 12-27
+    cluster_attr (colour, triangle vertex normals, flag), 28 the flat slot
+    as f32 (exact below 2^24), 29-31 zero."""
+    k, c = scene.cluster_prims.shape[:2]
+    dev = scene.cluster_prims.device
+    slot = torch.arange(k * c, dtype=torch.float32, device=dev).reshape(k, c, 1)
+    return torch.cat([scene.cluster_prims, scene.cluster_attr, slot,
+                      torch.zeros((k, c, 3), dtype=torch.float32, device=dev)],
+                     dim=2).reshape(k * c, 32).contiguous()
+
+
+def attr_slot(attrs: torch.Tensor) -> torch.Tensor:
+    """i32[N] flat slot of each attribute row's primitive, -1 on a miss."""
+    return torch.where(attrs[:, ATTR_MISS_COL] >= 0.0,
+                       attrs[:, ATTR_SLOT_COL].to(torch.int32), -1)
+
+
+def kernel_supported(scene) -> bool:
+    """The scenes the CUDA trace kernels take: clusters of 128 primitives.
+    The integrator's transports route by it where the JAX package asks
+    whether its Pallas kernels run."""
+    return scene.cluster_size == 128
 
 
 def clip_operand(clip, ops: TraceOperands):
@@ -177,11 +214,6 @@ def _use_kernel(x: torch.Tensor, impl) -> bool:
     if x.device.type != "cpu":
         raise ValueError(f"no trace implementation for device {x.device}")
     return False
-
-
-# Kernel launches by kernel name; only the CUDA launch sites add to them.
-launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
-                          "trace_closest_perray", "trace_any_perray"), 0)
 
 
 def _f32_row(x, n, device):
@@ -309,23 +341,25 @@ def _cluster_types(ct: int, scene_types_: tuple) -> tuple:
     return (ct == 1, ct == 2, ct == 0)
 
 
-def _launch(name: str, ops: TraceOperands, od, cp, clip_on, outs, group=False):
+def _launch(name: str, ops: TraceOperands, od, cp, clip_on, outs, group=False,
+            tables=()):
     """Check the operands and launch kernel `name` of the library on od's
-    stream: (od, n, soa, box, [gbox, G,] ctype, K, cp, clip_on, *outs).
-    Raises on a refused launch."""
+    stream: (od, n, soa, box, [gbox, G,] ctype, K, cp, clip_on, *tables,
+    *outs); tables: (tensor, dtype) inputs. Raises on a refused launch."""
     from .kernels import check_operand, library, stream_handle
 
     if ops.soa.shape[-1] != 128:
         raise ValueError("the CUDA trace kernels take clusters of 128 primitives")
     for x, dt in ((od, torch.float32), (ops.soa, torch.float32),
                   (ops.box, torch.float32), (ops.gbox, torch.float32),
-                  (ops.ctype, torch.int32), (cp, torch.float32)):
+                  (ops.ctype, torch.int32), (cp, torch.float32), *tables):
         check_operand(x, dt, od.device)
     groups = (ops.gbox.data_ptr(), ops.gbox.shape[0]) if group else ()
     err = getattr(library(), name)(
         od.data_ptr(), od.shape[1], ops.soa.data_ptr(), ops.box.data_ptr(), *groups,
         ops.ctype.data_ptr(), ops.soa.shape[0], cp.data_ptr(), int(clip_on),
-        *(o.data_ptr() for o in outs), stream_handle(od.device))
+        *(x.data_ptr() for x, _ in tables), *(o.data_ptr() for o in outs),
+        stream_handle(od.device))
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
@@ -339,6 +373,43 @@ def _closest_cuda(ops: TraceOperands, od, cp, clip_on, perray=False):
         _launch("wrt_" + name, ops, od, cp, clip_on, (t, row), group=perray)
         launches[name] += 1
     return t, row
+
+
+# ---------------------------------------------------------------------------
+# Closest hit with the winner's attribute row.
+
+
+def trace_closest_attrs(scene, o3, d3, t_min, clip=None, active=None, impl=None):
+    """Closest hit and the winner's attribute row: (t f32[N], BIG on a
+    miss; attrs f32[N,32], attr_operand's row of the winning slot). A miss,
+    an inactive lane included, gets an all-zero row with column 11 = -1.
+    t is trace_closest's (scene-centred rounding); the row carries
+    everything _finalize_hit and shading read, so neither gathers."""
+    ops = scene.trace_operands
+    od = closest_operand(o3, d3, t_min, active, ops.mid)
+    cp, clip_on = clip_operand(clip, ops)
+    if _use_kernel(od, impl):
+        n = od.shape[1]
+        t = torch.empty(n, dtype=torch.float32, device=od.device)
+        attrs = torch.empty((n, 32), dtype=torch.float32, device=od.device)
+        if n:
+            if ops.attr.data_ptr() % 16 or attrs.data_ptr() % 16:
+                raise ValueError("the attrs kernel moves rows as 16-byte vectors")
+            _launch("wrt_trace_closest_attrs", ops, od, cp, clip_on, (t, attrs),
+                    tables=((ops.attr, torch.float32),))
+            launches["trace_closest_attrs"] += 1
+        return t, attrs
+    return closest_attrs_plain(ops, od, cp, clip_on)
+
+
+def closest_attrs_plain(ops: TraceOperands, od, cp, clip_on):
+    """Plain version of the attrs kernel: the closest walk, then a gather
+    of the winner's table row (the miss row where there is none)."""
+    t, row = closest_plain(ops, od, cp, clip_on)
+    hit = row >= 0
+    attrs = torch.where(hit[:, None], ops.attr[torch.clamp_min(row, 0).long()], 0.0)
+    attrs[:, ATTR_MISS_COL] = torch.where(hit, attrs[:, ATTR_MISS_COL], -1.0)
+    return t, attrs
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,45 @@
-"""Vectors as component triples of [B] tensors.
+"""Vectors as component triples of [B] tensors, and the port's f32 maths.
 
 Counterpart of webgl_raytracer_tpu/ops/vec3.py, kept so the integrator's
 arithmetic reads (and rounds) the same as the reference's. A V3 is a tuple
 (x, y, z) of equal-shape tensors, or 0-d tensors / floats that broadcast.
+
+sqrt, pow, exp, cos, sin, tan, acos and atan2 are the port's only way to
+those functions. On CUDA tensors they are torch's, which round as the
+kernels' IEEE sqrtf does. On the CPU, torch's vectorised f32 versions are
+not correctly rounded on some machines (sqrt differs from
+float32(sqrt(float64(x))) on many inputs), and pow and atan2 there even
+round a lane by its position in the vector, so a permuted batch would
+shade differently. On CPU tensors these helpers compute in float64 and
+round once: exactly the correctly rounded f32 for sqrt, and for the
+others except where the float64 result lies within its own rounding
+error of an f32 tie.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _f32_math(fn):
+    def f(x, *rest):
+        if x.device.type != "cpu":
+            return fn(x, *rest)
+        rest = tuple(r.double() if isinstance(r, torch.Tensor) else r for r in rest)
+        return fn(x.double(), *rest).to(x.dtype)
+    f.__name__ = fn.__name__
+    f.__doc__ = f"torch.{fn.__name__}, correctly rounded on CPU tensors."
+    return f
+
+
+sqrt = _f32_math(torch.sqrt)
+pow = _f32_math(torch.pow)  # noqa: A001 - the torch name, as V.pow
+exp = _f32_math(torch.exp)
+cos = _f32_math(torch.cos)
+sin = _f32_math(torch.sin)
+tan = _f32_math(torch.tan)
+acos = _f32_math(torch.acos)
+atan2 = _f32_math(torch.atan2)
 
 
 def from_array(a):
@@ -63,7 +95,7 @@ def cross(a, b):
 
 
 def length(a):
-    return torch.sqrt(dot(a, a))
+    return sqrt(dot(a, a))
 
 
 def normalize(a, eps=1e-12):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..scene.bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
+from . import vec3 as V
 
 BIG = float(np.float32(1e20))
 INF = float("inf")
@@ -98,7 +99,7 @@ def intersect_soa_t(types, soa, o3, d3, t_min, clip):
         cterm = sx * sx + sy * sy + sz * sz - ra * ra
         disc = b * b - cterm
         ok = disc >= 0.0
-        sq = torch.sqrt(torch.where(ok, disc, 0.0))
+        sq = V.sqrt(torch.where(ok, disc, 0.0))
         t0 = -b - sq
         t1 = -b + sq
         ts = torch.where(t0 > tmin, t0, t1)
@@ -112,7 +113,7 @@ def intersect_soa_t(types, soa, o3, d3, t_min, clip):
         avy = p2y - p1y
         avz = p2z - p1z
         h2 = avx * avx + avy * avy + avz * avz
-        height = torch.sqrt(h2)
+        height = V.sqrt(h2)
         degen = height < 1e-6
         inv_h = 1.0 / torch.where(degen, 1.0, height)
         ax_ = avx * inv_h
@@ -135,7 +136,7 @@ def intersect_soa_t(types, soa, o3, d3, t_min, clip):
         c_q = opx * opx + opy * opy + opz * opz - ra * ra
         disc = b_q * b_q - 4.0 * a_q * c_q
         okq = (a_q > 1e-8) & (disc >= 0.0)
-        sq = torch.sqrt(torch.where(okq, disc, 0.0))
+        sq = V.sqrt(torch.where(okq, disc, 0.0))
         den = torch.where(okq, 2.0 * a_q, 1.0)
         t1c = (-b_q - sq) / den
         t2c = (-b_q + sq) / den
@@ -153,7 +154,7 @@ def intersect_soa_t(types, soa, o3, d3, t_min, clip):
             cq = qx * qx + qy * qy + qz * qz - ra * ra
             dq = bq * bq - cq
             okc = dq >= 0.0
-            sqc = torch.sqrt(torch.where(okc, dq, 0.0))
+            sqc = V.sqrt(torch.where(okc, dq, 0.0))
             tq = torch.where(-bq - sqc > tmin, -bq - sqc, -bq + sqc)
             tq = torch.where(okc & (tq > tmin), tq, -1.0)
             h = (qx + dx * tq) * ax_ + (qy + dy * tq) * ay_ + (qz + dz * tq) * az_
@@ -168,7 +169,7 @@ def intersect_soa_t(types, soa, o3, d3, t_min, clip):
         cq = qx * qx + qy * qy + qz * qz - ra * ra
         dq = bq * bq - cq
         okc = dq >= 0.0
-        sqc = torch.sqrt(torch.where(okc, dq, 0.0))
+        sqc = V.sqrt(torch.where(okc, dq, 0.0))
         tq = torch.where(-bq - sqc > tmin, -bq - sqc, -bq + sqc)
         tq = torch.where(okc & (tq > tmin), tq, -1.0)
         tc = torch.where(degen, tq, tc)
@@ -212,15 +213,19 @@ def intersect_soa_t(types, soa, o3, d3, t_min, clip):
 
 
 def _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row, cost,
-                  refine_sphere_t=False):
+                  refine_sphere_t=False, row=None):
     """Hit attributes of the winning primitive per ray: one [B,12] row
     gather, then barycentrics / cylinder cap code in component form.
 
     refine_sphere_t: recompute sphere winners' t with the quadratic in
     GLOBAL coordinates, removing the kernel's scene-centred rounding so
-    hit positions match an uncentred trace to f32 ulps."""
-    flat = scene.cluster_prims.reshape(-1, 12)
-    row = flat[torch.clamp_min(best_row, 0).long()]
+    hit positions match an uncentred trace to f32 ulps.
+
+    row: the winners' [B,12] cluster rows when the caller has them (the
+    attrs kernel's rows, columns 0-11); then nothing is gathered. They
+    equal the gathered rows on every hit lane."""
+    if row is None:
+        row = scene.cluster_prims.reshape(-1, 12)[torch.clamp_min(best_row, 0).long()]
     ox, oy, oz = o3
     dx, dy, dz = d3
     ptype = row[:, 11].to(torch.int32)
@@ -233,7 +238,7 @@ def _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row, cost,
         b = sx * dx + sy * dy + sz * dz
         cterm = sx * sx + sy * sy + sz * sz - row[:, 3] * row[:, 3]
         disc = b * b - cterm
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+        sq = V.sqrt(torch.clamp_min(disc, 0.0))
         t0 = -b - sq
         t1 = -b + sq
         ts = torch.where(t0 > t_min, t0, t1)
@@ -250,7 +255,7 @@ def _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row, cost,
         p1x, p1y, p1z = row[:, 0], row[:, 1], row[:, 2]
         p2x, p2y, p2z = row[:, 4], row[:, 5], row[:, 6]
         avx, avy, avz = p2x - p1x, p2y - p1y, p2z - p1z
-        height = torch.sqrt(avx * avx + avy * avy + avz * avz)
+        height = V.sqrt(avx * avx + avy * avy + avz * avz)
         degen = height < 1e-6
         inv_h = 1.0 / torch.where(degen, 1.0, height)
         ax_, ay_, az_ = avx * inv_h, avy * inv_h, avz * inv_h
@@ -300,7 +305,8 @@ def _broadcast_t_min(t_min, like):
 
 
 def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
-                        secondary=False, impl=None) -> HitRecord:
+                        secondary=False, full_record=True, with_attrs=False,
+                        impl=None):
     """Closest hit over the cluster SoA; rays as component triples.
     prim_slot indexes the padded cluster table ([K*C, 12]). The kernel's
     t is rounded in scene-centred coordinates; finalisation refines
@@ -308,13 +314,39 @@ def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
 
     secondary: the batch is divergent bounce rays; on cluster-rich scenes
     it goes to the per-ray kernel (ops/trace.perray_auto_secondary), as
-    the JAX package routes it."""
+    the JAX package routes it.
+
+    full_record=False: the caller needs only (t, prim_slot) and finalises
+    later (the chunked transports): t stays the kernel's unrefined t,
+    prim_type is a 0/-1 hit flag and no row is gathered.
+
+    with_attrs: returns (record, attrs f32[B,32]) through the attrs kernel
+    (ops/trace.trace_closest_attrs), the winner's attribute row, so that
+    neither this call nor shading gathers. Every closest trace with attrs
+    takes that block kernel, secondaries included, as the JAX package
+    routes it."""
     from . import trace as T
 
     t_min = _broadcast_t_min(t_min, o3[0])
+    if with_attrs:
+        t, attrs = T.trace_closest_attrs(scene, o3, d3, t_min, clip=clip,
+                                         active=active, impl=impl)
+        rec = _finalize_hit(scene, o3, d3, t_min, clip, t, T.attr_slot(attrs),
+                            cost=None, refine_sphere_t=True, row=attrs[:, :12])
+        return rec, attrs
     perray = secondary and T.perray_auto_secondary(scene)
     closest, best_row = T.trace_closest(scene, o3, d3, t_min, clip=clip,
                                         active=active, perray=perray, impl=impl)
+    if not full_record:
+        hit = best_row >= 0
+        return HitRecord(
+            t=torch.where(hit, closest, BIG),
+            prim_type=torch.where(hit, 0, -1).to(torch.int32),
+            prim_local=torch.full_like(best_row, -1),
+            prim_slot=best_row,
+            extra=torch.zeros((best_row.shape[0], 3), dtype=torch.float32,
+                              device=best_row.device),
+            cost=None)
     return _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row,
                          cost=None, refine_sphere_t=True)
 

@@ -4,28 +4,50 @@
 
 For each of two scenes — the 1000-sphere main path (default settings,
 ambient light) and the 10k-sphere scene under the default analytic sky
-(1024x512, env_intensity 0.4) — renders two warm frames at 1920x1080, the
-second of them timed, then one frame under torch.profiler, and prints one
-JSON line: both frames' wall milliseconds, the device busy time of the
-profiled frame (sum of kernel times), the idle share against each wall
-time, the trace kernels' time and launches, and the top kernels by device
-time. The idle share against the unprofiled frame is an estimate: busy
-time and wall time come from two consecutive frames of one run.
+(1024x512, env_intensity 0.4) — and each of two transports — the binned
+one that 1080p frames take by default, and the whole batch (WRT_CHUNKS=1)
+for comparison — renders at 1920x1080 one warm frame, TIMED_FRAMES frames
+timed one by one, then one frame under torch.profiler, and prints one
+JSON line: the timed frames' wall milliseconds (mean and each), the
+profiled frame's, its device busy time (sum of kernel times), the idle
+share against the profiled wall and against the timed frames' mean (an
+estimate: busy and wall time come from different frames of one run), the
+trace kernels' time and launches, and the top kernels by device time.
+The first line is the card's name and power limit as nvidia-smi gives
+them.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import time
 
 WIDTH, HEIGHT = 1920, 1080
 TOP_KERNELS = 12
+TIMED_FRAMES = 5
 TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any_kernel",
-                 "trace_closest_perray_kernel", "trace_any_perray_kernel")
+                 "trace_closest_perray_kernel", "trace_any_perray_kernel",
+                 "trace_closest_attrs_kernel")
+TRANSPORTS = (("binned", {}), ("whole batch", {"WRT_CHUNKS": "1"}))
 
 
-def profile_scene(name, r) -> dict:
+def profile_scene(name, r, transport, knobs) -> dict:
+    """Profile one frame of `r` with the environment knobs set."""
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        return _profile(name, r, transport)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _profile(name, r, transport) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -33,10 +55,13 @@ def profile_scene(name, r) -> dict:
     r.settings.tone_map = "linear"
     r.render_frame()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r.render_frame()
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1000.0
+    walls = []
+    for _ in range(TIMED_FRAMES):
+        t0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000.0)
+    plain_wall_ms = sum(walls) / len(walls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r.render_frame()
@@ -57,10 +82,11 @@ def profile_scene(name, r) -> dict:
     traces = {t: [sum(ms for k, ms, _ in rows if is_(t, k)),
                   sum(c for k, _, c in rows if is_(t, k))] for t in TRACE_KERNELS}
     return {
-        "scene": name,
+        "scene": name, "transport": transport,
         "device": torch.cuda.get_device_name(0),
         "size": f"{WIDTH}x{HEIGHT}",
         "wall_ms": wall_ms, "unprofiled_wall_ms": plain_wall_ms,
+        "unprofiled_wall_ms_each": walls,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "device_idle_share_unprofiled_est": max(0.0, 1.0 - busy_ms / plain_wall_ms),
@@ -88,11 +114,12 @@ def main() -> int:
     sky = EnvironmentController(device=device).load_analytic_sky()
     main_path = Renderer(compile_scene(random_sphere_geometry(1000), device=device),
                          width=WIDTH, height=HEIGHT, device=device)
-    print(json.dumps(profile_scene("spheres1000", main_path)), flush=True)
     lit = Renderer(compile_scene(random_sphere_geometry(10000), device=device),
                    env=sky, width=WIDTH, height=HEIGHT, device=device)
     lit.settings.env_intensity = 0.4
-    print(json.dumps(profile_scene("spheres10k analytic sky", lit)), flush=True)
+    for name, r in (("spheres1000", main_path), ("spheres10k analytic sky", lit)):
+        for transport, knobs in TRANSPORTS:
+            print(json.dumps(profile_scene(name, r, transport, knobs)), flush=True)
     return 0
 
 

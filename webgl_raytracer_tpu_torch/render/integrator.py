@@ -1,8 +1,8 @@
-"""The path-tracing integrator over a whole ray batch.
+"""The path-tracing integrator and its transports.
 
-Counterpart of webgl_raytracer_tpu/render/integrator.py, whole-batch
-transport only: every ray of the frame steps through the bounce loop
-together, dead paths masked out of traversal and shading. Per bounce:
+Counterpart of webgl_raytracer_tpu/render/integrator.py. One bounce step
+(_make_bounce_step) runs over a flat batch of rays, dead paths masked out
+of traversal and shading. Per bounce:
 
   closest hit (ops/trace kernel) -> environment / ambient on miss with
   MIS -> surface reconstruction by primitive type -> glass/translucent
@@ -14,10 +14,33 @@ Per-ray vectors are component triples of [B] tensors (ops/vec3.py) and
 RNG draws stay in the reference's order, so a frame matches the JAX
 package's frame sample for sample up to f32 rounding.
 
+_sample_radiance chooses how a frame's rays go through the bounces, as
+the JAX package does:
+
+  whole batch   one chunk (_chunk_count: frames under 2 x CHUNK_TARGET
+                rays, or WRT_CHUNKS=1): every ray through every bounce;
+  permuted      (_run_permuted) primaries traced full width, rays moved
+                hit-first in 32-ray blocks, then the bounces chunk by
+                chunk; a chunk whose rays all died skips its later bounces.
+                With WRT_ATTRS=1 (_use_attrs) the traces return the
+                winner's attribute row (ops/trace.trace_closest_attrs) and
+                the rows ride through the permutation instead of the slot;
+  binned        (_binned_transport, the default where the kernels run)
+                primary hits packed live-first into a buffer of n/12
+                lanes, the bounces run over its live prefix, re-packed by
+                a coherence key (direction octant x origin cell) after each
+                bounce but the last; radiance returns to pixel order once
+                at the end.
+                A frame with more live rays than the buffer holds takes the
+                permuted transport. WRT_BINNED=0 turns it off.
+
+Each transport is a permutation of the same per-lane computation, so all
+give the same frame bit for bit (per-ray results do not depend on
+batching).
+
 Not ported yet, and raising NotImplementedError when asked for: the
 volume march, visualisation modes 1-3, the stack tracer and the
-brute-force (use_bvh=False) sweep. The binned/permuted transports wait for a later
-slice; per-ray results do not depend on batching.
+brute-force (use_bvh=False) sweep.
 
 Skip gates: where the JAX package skips work with
 `lax.cond(jnp.any(mask))`, this module tests `bool(mask.any())` on the
@@ -26,6 +49,7 @@ host. Each is a device->host sync per trace; a later change removes them.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,9 +60,11 @@ from ..ops import sampling as S
 from ..ops import vec3 as V
 from ..ops.envmap import env_pdf_v3, sample_env_direction_v3, sample_env_radiance_v3
 from ..ops.rng import init_seed, rand, rand2
-from ..ops.wavefront import (HitRecord, wf_trace_any3_v3, wf_trace_any_v3,
-                             wf_trace_closest_v3)
+from ..ops.trace import ATTR_MISS_COL, attr_slot, kernel_supported
+from ..ops.wavefront import (HitRecord, _finalize_hit, wf_trace_any3_v3,
+                             wf_trace_any_v3, wf_trace_closest_v3)
 from ..scene.bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
+from . import compact as CP
 
 BIG = float(np.float32(1e20))
 RADIANCE_CLAMP = 100.0
@@ -66,6 +92,14 @@ def _clip_tuple(flags, u):
     return (u.clip_normal, u.clip_offset, u.clip_side)
 
 
+def _use_attrs(scene) -> bool:
+    """Shade from the attrs kernel's winner rows instead of gathering
+    after the trace (WRT_ATTRS=1; off by default, as in the JAX package,
+    which measured it slower on its TPU). Frames are the same bit for bit
+    either way."""
+    return os.environ.get("WRT_ATTRS") == "1" and kernel_supported(scene)
+
+
 def _miss_record(n, device) -> HitRecord:
     return HitRecord(
         t=torch.full((n,), BIG, dtype=torch.float32, device=device),
@@ -77,14 +111,26 @@ def _miss_record(n, device) -> HitRecord:
     )
 
 
+def _miss_attrs(n, device) -> torch.Tensor:
+    attrs = torch.zeros((n, 32), dtype=torch.float32, device=device)
+    attrs[:, ATTR_MISS_COL] = -1.0
+    return attrs
+
+
 def _closest_hit(scene, flags, o3, d3, t_min, clip, active=None,
-                 secondary=False, impl=None):
+                 secondary=False, full_record=True, with_attrs=False, impl=None):
     """Closest-hit trace, skipped when no lane is active (host sync).
-    secondary marks bounce rays (per-ray routing on cluster-rich scenes)."""
+    secondary marks bounce rays (per-ray routing on cluster-rich scenes;
+    the JAX package's _trace_or_skip is this call with secondary=True).
+    full_record=False returns the (t, prim_slot) record the chunked
+    transports finalise later; with_attrs returns (record, attrs [B,32])."""
     if active is not None and not bool(active.any()):
-        return _miss_record(o3[0].shape[0], o3[0].device)
+        n, device = o3[0].shape[0], o3[0].device
+        rec = _miss_record(n, device)
+        return (rec, _miss_attrs(n, device)) if with_attrs else rec
     return wf_trace_closest_v3(scene, o3, d3, t_min, clip, active=active,
-                               secondary=secondary, impl=impl)
+                               secondary=secondary, full_record=full_record,
+                               with_attrs=with_attrs, impl=impl)
 
 
 def _any_hit(scene, flags, o3, d3, t_min, clip, accept_min=None, t_max=BIG,
@@ -127,16 +173,24 @@ def _tri_index(scene, rec):
     return torch.clamp(rec.prim_local, 0, scene.tri_normals.shape[0] - 1).long()
 
 
-def _surface_attributes(scene, flags, rec, pos, direction, u):
+def _surface_attributes(scene, flags, rec, pos, direction, u, attrs=None):
     """Geometric/shading normals + base colour at the hit, by primitive
-    type: (n_geom, shading normal, base colour, front-facing)."""
-    slot = torch.clamp_min(rec.prim_slot, 0).long()
+    type: (n_geom, shading normal, base colour, front-facing).
+
+    attrs: the winners' attribute rows (ops/trace.attr_operand layout);
+    they replace every gather here (cluster row, colour, vertex normals)
+    with the same values."""
     ptype = rec.prim_type
-    row = scene.cluster_prims.reshape(-1, 12)[slot]
+    if attrs is None:
+        slot = torch.clamp_min(rec.prim_slot, 0).long()
+        row = scene.cluster_prims.reshape(-1, 12)[slot]
+        imported_color = V.from_array(scene.cluster_color[slot])
+    else:
+        row = attrs
+        imported_color = (attrs[:, 12], attrs[:, 13], attrs[:, 14])
     pa = (row[:, 0], row[:, 1], row[:, 2])
     pb = (row[:, 4], row[:, 5], row[:, 6])
     pc = (row[:, 8], row[:, 9], row[:, 10])
-    imported_color = V.from_array(scene.cluster_color[slot])
 
     zero = torch.zeros_like(pos[0])
     n_raw = (zero, zero, zero)
@@ -153,10 +207,13 @@ def _surface_attributes(scene, flags, rec, pos, direction, u):
     if scene.tri_count:
         n_tri = V.normalize(V.cross(V.sub(pb, pa), V.sub(pc, pa)))
         n_raw = V.where(ptype == PRIM_TRIANGLE, n_tri, n_raw)
-        tn = scene.tri_normals[_tri_index(scene, rec)]   # [B,3,3] gather
-        tn0 = (tn[:, 0, 0], tn[:, 0, 1], tn[:, 0, 2])
-        tn1 = (tn[:, 1, 0], tn[:, 1, 1], tn[:, 1, 2])
-        tn2 = (tn[:, 2, 0], tn[:, 2, 1], tn[:, 2, 2])
+        if attrs is None:
+            tn = scene.tri_normals[_tri_index(scene, rec)].reshape(-1, 9)  # gather
+        else:
+            tn = attrs[:, 15:24]
+        tn0 = (tn[:, 0], tn[:, 1], tn[:, 2])
+        tn1 = (tn[:, 3], tn[:, 4], tn[:, 5])
+        tn2 = (tn[:, 6], tn[:, 7], tn[:, 8])
         bu = rec.extra[..., 0]
         bv = rec.extra[..., 1]
         b0 = 1.0 - bu - bv
@@ -234,8 +291,8 @@ class PathState:
 
 def _make_bounce_step(scene, env, flags, u, n, impl=None):
     """Factory for ONE path-trace bounce over a flat [n] ray batch:
-    bounce_body(bounce: int, state) -> state. env: EnvBuffers when
-    flags.use_env."""
+    bounce_body(bounce: int, state, rec=None, attrs=None, use_attrs=False)
+    -> state. env: EnvBuffers when flags.use_env."""
     check_supported(flags)
     if flags.use_env and env is None:
         raise ValueError("flags.use_env is set but no environment was given")
@@ -243,11 +300,19 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
     clip = _clip_tuple(flags, u)
     ambient = V.splat(u.ambient_color)
 
-    def bounce_body(bounce: int, st: PathState) -> PathState:
+    def bounce_body(bounce: int, st: PathState, rec=None, attrs=None,
+                    use_attrs=False) -> PathState:
+        """rec (and attrs): this bounce's closest hits when the caller
+        traced them already (bounce 0 of the chunked transports); else the
+        live lanes are traced here, through the attrs kernel when
+        use_attrs."""
         st.nrays = st.nrays + st.alive.sum()
-        rec = _closest_hit(scene, flags, st.origin, st.direction, u.t_min,
-                           clip, active=st.alive, secondary=bounce > 0,
-                           impl=impl)
+        if rec is None:
+            rec = _closest_hit(scene, flags, st.origin, st.direction, u.t_min,
+                               clip, active=st.alive, secondary=bounce > 0,
+                               with_attrs=use_attrs, impl=impl)
+            if use_attrs:
+                rec, attrs = rec
         hit = rec.prim_type >= 0
 
         # --- environment / ambient on miss, MIS against BRDF sampling ---
@@ -270,10 +335,10 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
 
         # Everything below runs only when some lane hit (host sync).
         if bool(st.alive.any()):
-            st = shade_tail(bounce, rec, st)
+            st = shade_tail(bounce, rec, attrs, st)
         return st
 
-    def shade_tail(bounce: int, rec: HitRecord, st: PathState) -> PathState:
+    def shade_tail(bounce: int, rec: HitRecord, attrs, st: PathState) -> PathState:
         seed = st.seed
         origin, direction = st.origin, st.direction
         throughput, radiance = st.throughput, st.radiance
@@ -283,7 +348,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
         # --- surface reconstruction ---
         pos = V.add(origin, V.scale(direction, rec.t))
         n_geom, sn, base_color, front = _surface_attributes(
-            scene, flags, rec, pos, direction, u)
+            scene, flags, rec, pos, direction, u, attrs=attrs)
         v = V.neg(direction)
 
         # --- glass / translucent transmission ---
@@ -294,7 +359,8 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
             if flags.material_mode == 2:
                 glass_lane = rec.prim_type == PRIM_TRIANGLE
                 if flags.surface_flag_mode != 0 and scene.tri_count:
-                    tflag = scene.tri_flags[_tri_index(scene, rec)]
+                    tflag = (scene.tri_flags[_tri_index(scene, rec)] if attrs is None
+                             else attrs[:, 24])
                     glass_lane = glass_lane & (tflag > 0.5)
             else:
                 glass_lane = torch.ones((n,), dtype=torch.bool, device=device)
@@ -374,7 +440,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
         # --- rim boost at the primary hit ---
         if flags.rim_enabled and flags.material_mode == 0 and bounce == 0:
             ndv = torch.clamp_min(V.dot(sn, v), 0.0)
-            rim = torch.pow(1.0 - ndv, 3.0) * u.rim_boost
+            rim = V.pow(1.0 - ndv, 3.0) * u.rim_boost
             rim_add = V.scale(V.mul(throughput, base_color), rim)
             for c in range(3):
                 radiance[c].add_(torch.where(shade_lane, rim_add[c], 0.0))
@@ -481,7 +547,7 @@ def _sample_lights(flags, u, sn, shade_lane, seed, n):
             continue
         seed, l1, l2 = rand2(seed)
         ld = u.light_dir[i]
-        axis_const = -ld / torch.sqrt((ld * ld).sum())
+        axis_const = -ld / V.sqrt((ld * ld).sum())
         axis = tuple(axis_const[c].expand(n) for c in range(3))
         ldir, l_pdf = S.cone_from_uv_v3(axis, u.light_angle[i], l1, l2)
         ndl = torch.clamp_min(V.dot(sn, ldir), 0.0)
@@ -502,15 +568,8 @@ def _fan_query(light_samples, n, device):
     return d3s, acts
 
 
-def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None):
-    """Full path trace for a flat ray batch of component-triple rays.
-    Returns (radiance triple, seed, (path_rays, occl_rays)): path_rays
-    counts closest-hit extension segments (camera + bounces), occl_rays
-    the any-hit shadow candidates (cone lights and env NEE), as 0-d int64
-    tensors. env: EnvBuffers, required when flags.use_env."""
-    n = origin0[0].shape[0]
-    device = origin0[0].device
-    bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl)
+def _initial_state(seed, origin, direction, device) -> PathState:
+    n = seed.shape[0]
 
     def ones():
         return torch.ones((n,), dtype=torch.float32, device=device)
@@ -519,19 +578,42 @@ def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None):
         return torch.zeros((n,), dtype=torch.float32, device=device)
 
     counter = torch.zeros((), dtype=torch.int64, device=device)
-    st = PathState(
-        seed=seed0, origin=origin0, direction=dir0,
+    return PathState(
+        seed=seed, origin=origin, direction=direction,
         throughput=(ones(), ones(), ones()),
         radiance=(zeros(), zeros(), zeros()),
         last_pdf=zeros(),
         alive=torch.ones((n,), dtype=torch.bool, device=device),
         nrays=counter, noccl=counter.clone(),
     )
+
+
+def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None,
+                first_rec=None, first_attrs=None):
+    """Full path trace for a flat ray batch of component-triple rays.
+    Returns (radiance triple, seed, (path_rays, occl_rays)): path_rays
+    counts closest-hit extension segments (camera + bounces), occl_rays
+    the any-hit shadow candidates (cone lights and env NEE), as 0-d int64
+    tensors. env: EnvBuffers, required when flags.use_env.
+
+    first_rec: the batch's bounce-0 hits, traced and finalised by the
+    caller (a chunk of the permuted transport); first_attrs their
+    attribute rows on the attrs path, which then shades every bounce from
+    attrs-kernel rows. Without first_rec, _use_attrs decides."""
+    n = origin0[0].shape[0]
+    use_attrs = (first_attrs is not None if first_rec is not None
+                 else _use_attrs(scene))
+    bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl)
+    st = _initial_state(seed0, origin0, dir0, origin0[0].device)
     for bounce in range(flags.max_bounces):
         # Bounces past the first run only while some path is alive.
         if bounce > 0 and not bool(st.alive.any()):
             break
-        st = bounce_body(bounce, st)
+        if bounce == 0:
+            st = bounce_body(0, st, rec=first_rec, attrs=first_attrs,
+                             use_attrs=use_attrs)
+        else:
+            st = bounce_body(bounce, st, use_attrs=use_attrs)
     radiance = V.min_with(st.radiance, RADIANCE_CLAMP)
     return radiance, st.seed, (st.nrays, st.noccl)
 
@@ -559,7 +641,7 @@ def generate_camera_rays(u, flags, px, py, frame_index, sample_index):
 
     if flags.dof_enabled:
         def unit(x):
-            return x / torch.sqrt((x * x).sum())
+            return x / V.sqrt((x * x).sum())
 
         fwd_n, right_n, up_n = unit(u.cam_forward), unit(u.cam_right), unit(u.cam_up)
         denom = torch.clamp_min(
@@ -578,6 +660,267 @@ def generate_camera_rays(u, flags, px, py, frame_index, sample_index):
     return seed, origin, direction
 
 
+# Target rays per chunk of the permuted transport, and the tile a chunk
+# is a multiple of (the JAX package's CHUNK_TARGET and wavefront.TILE).
+CHUNK_TARGET = 1 << 17
+TILE = 256
+
+
+def _chunk_count(n: int) -> int:
+    """Largest chunk count that keeps chunks >= CHUNK_TARGET rays, divides
+    the batch exactly and keeps each chunk a multiple of TILE; 1 (the
+    whole batch) below 2 x CHUNK_TARGET rays. WRT_CHUNKS overrides it
+    where that count is 1 or divides the batch into TILE multiples."""
+    force = os.environ.get("WRT_CHUNKS")
+    if force:
+        c = int(force)
+        if c == 1 or (c > 1 and n % c == 0 and (n // c) % TILE == 0):
+            return c
+    if n < 2 * CHUNK_TARGET:
+        return 1
+    best = 1
+    for chunks in range(2, 64):
+        if n % chunks:
+            continue
+        size = n // chunks
+        if size < CHUNK_TARGET or size % TILE:
+            continue
+        best = chunks
+    return best
+
+
+def _hit_first_permutation(hit):
+    """Stable partition: hit lanes first, misses after. Returns (perm,
+    inv): perm[slot] is the lane at a sorted slot, inv[lane] its slot."""
+    n = hit.shape[0]
+    hit_i = hit.to(torch.int64)
+    pos_hit = torch.cumsum(hit_i, 0) - 1
+    pos_miss = hit_i.sum() + torch.cumsum(1 - hit_i, 0) - 1
+    inv = torch.where(hit, pos_hit, pos_miss)
+    perm = torch.empty_like(inv)
+    perm[inv] = torch.arange(n, dtype=torch.int64, device=hit.device)
+    return perm, inv
+
+
+# Rays move between chunks in blocks of this many (the JAX package's
+# value, raced on its TPU; kept so both permute alike).
+_PERM_BLOCK = 32
+
+
+def _tile_permutation(hit, g):
+    """Block-granular stable partition: g-ray blocks holding any hit
+    first, all-miss blocks after. Returns (perm, inv) over blocks."""
+    return _hit_first_permutation(hit.reshape(-1, g).any(dim=1))
+
+
+def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
+                  clip, chunks, impl=None):
+    """The block-permuted chunked transport: rays move hit-first in
+    _PERM_BLOCK blocks, then each chunk runs trace_paths from its bounce-0
+    record, rebuilt per chunk from (t, slot), or from (t, attrs) on the
+    attrs path (no gather), and the colours move back. Returns (radiance
+    triple, (path rays, occlusion rays))."""
+    n = origin[0].shape[0]
+    size = n // chunks
+    g = _PERM_BLOCK if (n % _PERM_BLOCK == 0 and size % _PERM_BLOCK == 0) else 1
+    if g > 1:
+        perm, inv = _tile_permutation(rec0.prim_type >= 0, g)
+
+        def gather(a):
+            return a.reshape((n // g, g) + a.shape[1:])[perm].reshape(a.shape)
+    else:
+        perm, inv = _hit_first_permutation(rec0.prim_type >= 0)
+
+        def gather(a):
+            return a[perm]
+
+    last = rec0.prim_slot if attrs0 is None else attrs0
+    state = [gather(a) for a in (seed, *origin, *direction, rec0.t, last)]
+    colors = []
+    counter = torch.zeros((), dtype=torch.int64, device=seed.device)
+    nrays, noccl = counter, counter.clone()
+    for c in range(chunks):
+        sl = slice(c * size, (c + 1) * size)
+        seed_c, ox, oy, oz, dx, dy, dz, t_c, last_c = (a[sl] for a in state)
+        origin_c, direction_c = (ox, oy, oz), (dx, dy, dz)
+        tmin_c = u.t_min.expand(size)
+        if attrs0 is None:
+            attrs_c = None
+            rec_c = _finalize_hit(scene, origin_c, direction_c, tmin_c, clip, t_c,
+                                  last_c, cost=None, refine_sphere_t=True)
+        else:
+            attrs_c = last_c
+            rec_c = _finalize_hit(scene, origin_c, direction_c, tmin_c, clip, t_c,
+                                  attr_slot(attrs_c), cost=None, refine_sphere_t=True,
+                                  row=attrs_c[:, :12])
+        radiance, _, (nr, no) = trace_paths(scene, flags, u, origin_c, direction_c,
+                                            seed_c, env=env, impl=impl,
+                                            first_rec=rec_c, first_attrs=attrs_c)
+        colors.append(V.to_array(radiance))
+        nrays, noccl = nrays + nr, noccl + no
+    colors = torch.cat(colors)
+    if g > 1:
+        colors = colors.reshape(n // g, g, 3)[inv].reshape(n, 3)
+    else:
+        colors = colors[inv]
+    return V.from_array(colors), (nrays, noccl)
+
+
+def _use_binned(scene, flags, n) -> bool:
+    """The binned transport: the default wherever the kernels run
+    (WRT_BINNED=1 forces it, =0 turns it off), for batches of whole
+    1024-ray blocks and at least one bounce."""
+    knob = os.environ.get("WRT_BINNED")
+    if knob == "0" or n % 1024 != 0 or flags.max_bounces < 1:
+        return False
+    return knob == "1" or kernel_supported(scene)
+
+
+def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
+                      fallback, impl=None):
+    """Coherence-binned transport (the JAX package's _binned_transport).
+
+    Bounce 0 packs the primary hits live-first (stable, so the final
+    expand is monotone) into a buffer of cap = compact_cap(n, div) lanes,
+    finalises their records there and shades them. After each bounce but
+    the last the whole buffer is re-packed by bin_key, live rows first,
+    every per-lane value moving with its row, radiance and the row's
+    bounce-0 slot (`home`) included. Each bounce runs once over the
+    buffer's live prefix, whose length the re-pack counts on the host (the
+    skip gate's sync). At the end one inverse move by home and one expand
+    return the radiance to pixel order, where the primary misses'
+    environment radiance is added.
+
+    A frame with more primary hits than cap (n_live, one host sync) runs
+    `fallback` (the permuted transport) instead. WRT_BIN_CAP_DIV sets div
+    (default 12). Returns (radiance triple, (path rays, occlusion rays))."""
+    n = origin[0].shape[0]
+    device = seed.device
+    hit = rec0.prim_slot >= 0
+    n_live = int(hit.sum())
+    cap = CP.compact_cap(n, int(os.environ.get("WRT_BIN_CAP_DIV") or 12))
+    if n_live > cap:
+        return fallback()
+
+    # The primary misses' radiance, in pixel order (bounce 0 of trace_paths
+    # for a lane that misses).
+    env_contrib = V.scale(V.splat(u.ambient_color), u.ambient_intensity)
+    if flags.use_env:
+        env_contrib = V.add(env_contrib, sample_env_radiance_v3(
+            env, direction, u.env_intensity, u.env_max_luminance))
+    zero = torch.zeros((n,), dtype=torch.float32, device=device)
+    miss_rad = V.min_with(V.where(~hit, env_contrib, (zero, zero, zero)),
+                          RADIANCE_CLAMP)
+
+    # Scene box of the spatial key.
+    lo = scene.cluster_bmin.min(dim=0).values
+    hi = scene.cluster_bmax.max(dim=0).values
+    inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-6)
+
+    # Bounce-0 pack.
+    idx = CP.live_first_index(hit, cap)
+    rows = CP.gather_rows(CP.pack_rows([seed, *origin, *direction, rec0.t,
+                                        rec0.prim_slot]), idx)
+    cols = rows.t().contiguous()
+    st = _initial_state(CP.seed_col(rows, 0), (cols[1], cols[2], cols[3]),
+                        (cols[4], cols[5], cols[6]), device)
+    lanes = torch.arange(cap, device=device)
+    st.alive = lanes < n_live
+    home = lanes
+    m = n_live
+    live = slice(0, m)
+    rec_k = _finalize_hit(scene, tuple(x[live] for x in st.origin),
+                          tuple(x[live] for x in st.direction),
+                          u.t_min.expand(m), clip, cols[7][live],
+                          CP.int_col(rows, 8)[live], cost=None, refine_sphere_t=True)
+
+    exact = True            # m counts the live lanes (after a pack)
+    for b in range(flags.max_bounces):
+        if m == 0 or (not exact and not bool(st.alive[:m].any())):
+            break
+        _bounce_prefix(scene, env, flags, u, b, st, m, rec_k if b == 0 else None, impl)
+        exact = False
+        if b < flags.max_bounces - 1:
+            key = CP.bin_key(st.origin, st.direction, lo, inv_extent)
+            order = torch.argsort(torch.where(st.alive, key, CP.DEAD_KEY), stable=True)
+            rows = CP.gather_rows(CP.pack_rows(
+                [st.seed, *st.origin, *st.direction, *st.throughput, st.last_pdf,
+                 *st.radiance, home]), order)
+            m = int(st.alive.sum())
+            cols = rows.t().contiguous()
+            st = PathState(seed=CP.seed_col(rows, 0),
+                           origin=(cols[1], cols[2], cols[3]),
+                           direction=(cols[4], cols[5], cols[6]),
+                           throughput=(cols[7], cols[8], cols[9]),
+                           last_pdf=cols[10],
+                           radiance=(cols[11], cols[12], cols[13]),
+                           alive=lanes < m, nrays=st.nrays, noccl=st.noccl)
+            home = CP.int_col(rows, 14)
+            exact = True
+
+    back = torch.argsort(home, stable=True)
+    rad_c = V.min_with(tuple(r[back] for r in st.radiance), RADIANCE_CLAMP)
+    radiance = V.add(miss_rad, CP.expand_cols(rad_c, hit))
+    return radiance, (st.nrays + (n - n_live), st.noccl)
+
+
+def _bounce_prefix(scene, env, flags, u, bounce, st, m, rec, impl):
+    """Run bounce `bounce` over lanes [0, m) of the buffer state `st` (the
+    lanes past m are dead) and write the results back in place."""
+    def head(x):
+        return x[:m]
+
+    sub = PathState(seed=head(st.seed), origin=tuple(map(head, st.origin)),
+                    direction=tuple(map(head, st.direction)),
+                    throughput=tuple(map(head, st.throughput)),
+                    radiance=tuple(head(x).clone() for x in st.radiance),
+                    last_pdf=head(st.last_pdf), alive=head(st.alive),
+                    nrays=st.nrays, noccl=st.noccl)
+    out = _make_bounce_step(scene, env, flags, u, m, impl=impl)(bounce, sub, rec=rec)
+    for full, part in ((st.seed, out.seed), (st.last_pdf, out.last_pdf),
+                       (st.alive, out.alive),
+                       *zip(st.origin, out.origin), *zip(st.direction, out.direction),
+                       *zip(st.throughput, out.throughput),
+                       *zip(st.radiance, out.radiance)):
+        if part.data_ptr() != full.data_ptr():
+            full[:m] = part
+    st.nrays, st.noccl = out.nrays, out.noccl
+
+
+def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=None):
+    """One path-traced sample for every pixel, through the transport the
+    JAX package's _sample_radiance picks: the whole batch for one chunk;
+    else a full-width primary trace, then the permuted transport with
+    attrs rows (_use_attrs), the binned transport (_use_binned, falling
+    back to the permuted one over its cap) or the permuted transport.
+    Returns (radiance triple, (path rays, occlusion rays))."""
+    check_supported(flags)
+    seed, origin, direction = generate_camera_rays(u, flags, px, py, frame_index, s)
+    n = px.shape[0]
+    chunks = _chunk_count(n)
+    if chunks == 1:
+        radiance, _, rays = trace_paths(scene, flags, u, origin, direction, seed,
+                                        env=env, impl=impl)
+        return radiance, rays
+    clip = _clip_tuple(flags, u)
+    attrs0 = None
+    if _use_attrs(scene):
+        rec0, attrs0 = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
+                                    with_attrs=True, impl=impl)
+    else:
+        rec0 = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
+                            full_record=False, impl=impl)
+
+    def permuted():
+        return _run_permuted(scene, env, flags, u, seed, origin, direction, rec0,
+                             attrs0, clip, chunks, impl=impl)
+
+    if attrs0 is None and _use_binned(scene, flags, n):
+        return _binned_transport(scene, env, flags, u, seed, origin, direction,
+                                 rec0, clip, permuted, impl=impl)
+    return permuted()
+
+
 def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None):
     """One progressive sample set per pixel -> (colour f32[B,3], (path
     rays, occlusion rays)). Exposure is applied before accumulation."""
@@ -586,10 +929,8 @@ def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None
     rays = (torch.zeros((), dtype=torch.int64, device=device),
             torch.zeros((), dtype=torch.int64, device=device))
     for s in range(flags.spp):
-        seed, origin, direction = generate_camera_rays(u, flags, px, py,
-                                                       frame_index, s)
-        radiance, _, nrays = trace_paths(scene, flags, u, origin, direction,
-                                         seed, env=env, impl=impl)
+        radiance, nrays = _sample_radiance(scene, flags, u, px, py, frame_index, s,
+                                           env=env, impl=impl)
         total = V.add(total, radiance)
         rays = (rays[0] + nrays[0], rays[1] + nrays[1])
     return V.to_array(V.scale(total, u.exposure / flags.spp)), rays

@@ -10,9 +10,12 @@ rows. A cluster row is
 
     triangle: v0 | v1 | v2;  sphere: center, radius;  cylinder: p1, radius | p2.
 
-The unified leaf-4 BVH, the prim_* tables and cluster_attr of the JAX
-package serve its stack tracer, picking and attribute kernel only, so they
-are not built here.
+Beside the rows, `cluster_attr` f32[K,C,16] holds each slot's shading
+attributes (build_attr_soa): colour rgb (0-2), the triangle's vertex
+normals n0/n1/n2 (3-11) and its flag (12). The attrs kernel
+(ops/trace.trace_closest_attrs) returns the winner's row of it. The unified
+leaf-4 BVH and the prim_* tables of the JAX package serve its stack tracer
+and picking only, so they are not built here.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from .bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE, build_bvh
 
 # Tensor fields of SceneBuffers (the rest are python ints).
 TENSOR_FIELDS = ("cluster_prims", "cluster_soa", "cluster_color",
-                 "cluster_bmin", "cluster_bmax", "tri_normals", "tri_flags")
+                 "cluster_bmin", "cluster_bmax", "cluster_attr", "tri_normals",
+                 "tri_flags")
 COUNT_FIELDS = ("tri_count", "sphere_count", "cylinder_count",
                 "num_clusters", "cluster_size")
 
@@ -43,6 +47,7 @@ class SceneBuffers:
     cluster_color: torch.Tensor     # f32[K*C,3]
     cluster_bmin: torch.Tensor      # f32[K,3]
     cluster_bmax: torch.Tensor      # f32[K,3]
+    cluster_attr: torch.Tensor      # f32[K,C,16] shading attributes per slot
     tri_normals: torch.Tensor       # f32[max(Nt,1),3,3] per-vertex normals
     tri_flags: torch.Tensor         # f32[max(Nt,1)]
     tri_count: int
@@ -126,6 +131,7 @@ def compile_scene(geometry: Geometry | None = None, tri_verts=None,
         cluster_color=colors,
         cluster_bmin=bmin,
         cluster_bmax=bmax,
+        cluster_attr=build_attr_soa(prims, colors, tn, tf),
         tri_normals=_pad_rows(tn, 1),
         tri_flags=_pad_rows(tf, 1),
         tri_count=nt,
@@ -135,6 +141,27 @@ def compile_scene(geometry: Geometry | None = None, tri_verts=None,
         cluster_size=cluster_size,
     )
     return scene_from_numpy(fields_, device)
+
+
+ATTR_COLS = 16
+
+
+def build_attr_soa(cluster_prims, cluster_color, tri_normals, tri_flags):
+    """f32[K,C,16] shading attributes aligned with cluster_prims [K,C,12]:
+    colour rgb (0-2) from cluster_color [K*C,3]; for triangle slots the
+    vertex normals n0, n1, n2 (3-11) and the flag (12) of the triangle the
+    slot's local index names. The JAX package's
+    pallas_trace.build_attr_soa."""
+    k, c = cluster_prims.shape[:2]
+    attr = np.zeros((k, c, ATTR_COLS), np.float32)
+    attr[:, :, 0:3] = np.asarray(cluster_color).reshape(k, c, 3)
+    tn = np.asarray(tri_normals, np.float32)
+    if tn.shape[0]:
+        kk, cc = np.nonzero(cluster_prims[..., 11] == PRIM_TRIANGLE)
+        li = np.clip(cluster_prims[kk, cc, 7].astype(np.int32), 0, tn.shape[0] - 1)
+        attr[kk, cc, 3:12] = tn[li].reshape(-1, 9)
+        attr[kk, cc, 12] = np.asarray(tri_flags, np.float32)[li]
+    return attr
 
 
 def _pack_type_clusters(bvh, c, ptype_code, fill):
