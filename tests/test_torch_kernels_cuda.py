@@ -15,8 +15,10 @@ import pytest
 import torch
 
 from webgl_raytracer_tpu_torch.env import EnvironmentController
+from webgl_raytracer_tpu_torch.models import Geometry
 from webgl_raytracer_tpu_torch.ops import trace as T
 from webgl_raytracer_tpu_torch.render import Renderer
+from webgl_raytracer_tpu_torch.render.integrator import generate_camera_rays
 from webgl_raytracer_tpu_torch.scene import (compile_scene, molecule_geometry,
                                              random_sphere_geometry)
 
@@ -38,6 +40,18 @@ def _compile(name, device):
         return compile_scene(random_sphere_geometry(400, seed=11), device=device)
     if name == "spheres20k":
         return compile_scene(random_sphere_geometry(20000, seed=11), device=device)
+    if name == "spheres10k":
+        return compile_scene(random_sphere_geometry(10000), device=device)
+    if name == "spheres+cylinders+tris":
+        # Over 64 clusters of all three types: the ray-major shadow fan.
+        g = random_sphere_geometry(9000, seed=5)
+        rng = np.random.default_rng(5)
+        p1 = ((rng.random((300, 3)) - 0.5) * 40).astype(np.float32)
+        p2 = p1 + rng.normal(size=(300, 3)).astype(np.float32)
+        return compile_scene(Geometry(
+            g.sphere_centers, g.sphere_radii, g.sphere_colors, p1, p2,
+            np.full(300, 0.2, np.float32), np.full((300, 3), 0.5, np.float32)),
+            tri_verts=TRIS, device=device)
     return compile_scene(molecule_geometry("caffeine"), tri_verts=TRIS, device=device)
 
 
@@ -70,32 +84,92 @@ def _fan(n, seed, device, spread=0.05):
     return o3, tuple(d3s), tuple(acts), torch.full((n,), 1e-3, device=device)
 
 
+@pytest.fixture(scope="module", params=["spheres400", "caffeine+tris", "spheres10k",
+                                        "spheres+cylinders+tris"])
+def trace_scene(request, device):
+    """Scenes for the warp-cooperative kernels: spheres10k has K = 128,
+    spheres+cylinders+tris over 64 clusters of the three types (the
+    shadow fan's ray-major schedule)."""
+    return _compile(request.param, device)
+
+
+# A full batch, and one whose last warp is ragged (1013 = 31 * 32 + 21).
+BATCHES = pytest.mark.parametrize("n", [1 << 16, 1013], ids=["full", "ragged"])
+
+
+@BATCHES
 @pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
                          ids=["noclip", "clip"])
-def test_trace_closest_kernel_matches_plain(scene, device, clip):
-    o3, d3s, acts, tmin = _fan(1 << 16, 13, device)
+def test_trace_closest_kernel_matches_plain(trace_scene, device, clip, n):
+    o3, d3s, acts, tmin = _fan(n, 13, device)
     before = T.launches["trace_closest"]
-    tk, rk = T.trace_closest(scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+    tk, rk = T.trace_closest(trace_scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
     assert T.launches["trace_closest"] == before + 1
-    tp, rp = T.trace_closest(scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
+    tp, rp = T.trace_closest(trace_scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
                              impl="plain")
     assert T.launches["trace_closest"] == before + 1
+    assert int((rk >= 0).sum()) > n // 50
+    assert torch.equal(rk, rp)
+    assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+
+
+def test_trace_closest_kernel_breaks_exact_ties_by_lowest_row(device):
+    """Every sphere twice: each hit is an exact tie in t between two rows
+    of one cluster, settled by the lowest row as in the plain version."""
+    g = random_sphere_geometry(500, seed=3)
+    twins = compile_scene(Geometry(
+        np.repeat(g.sphere_centers, 2, axis=0), np.repeat(g.sphere_radii, 2),
+        np.repeat(g.sphere_colors, 2, axis=0), g.cyl_p1, g.cyl_p2, g.cyl_radii,
+        g.cyl_colors), device=device)
+    r = Renderer(twins, width=160, height=120, device=device)
+    flags, u, px, py = r.frame_inputs()
+    _, o3, d3 = generate_camera_rays(u, flags, px, py, 0, 0)
+    tmin = u.t_min.expand(px.shape[0])
+    tk, rk = T.trace_closest(twins, o3, d3, tmin)
+    tp, rp = T.trace_closest(twins, o3, d3, tmin, impl="plain")
     assert int((rk >= 0).sum()) > 100
     assert torch.equal(rk, rp)
     assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
 
 
+def _sphere_centres(scene, n, device):
+    """Origins at the scene's sphere centres (each ray starts inside a
+    sphere, so every direction is occluded), cycled to n lanes."""
+    p = scene.cluster_prims.reshape(-1, 12)
+    c = p[p[:, 11] == 1.0][:, :3]
+    c = c[torch.arange(n, device=device) % c.shape[0]]
+    return tuple(c[:, i].contiguous() for i in range(3))
+
+
+@BATCHES
+@pytest.mark.parametrize("masks", ["random", "one direction", "none", "all occluded"])
 @pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
                          ids=["noclip", "clip"])
-def test_trace_any3_kernel_matches_plain(scene, device, clip):
-    o3, d3s, acts, tmin = _fan(1 << 16, 17, device)
+def test_trace_any3_kernel_matches_plain(trace_scene, device, clip, masks, n):
+    o3, d3s, acts, tmin = _fan(n, 17, device)
+    none = torch.zeros_like(acts[0])
+    if masks == "one direction":
+        acts = (none, acts[1], none)
+    elif masks == "none":
+        acts = (none, none, none)
+    elif masks == "all occluded":
+        o3 = _sphere_centres(trace_scene, n, device)
+        acts = (None, None, None)
     lo = torch.full_like(tmin, 0.01)
-    ok = T.trace_any3(scene, o3, d3s, tmin, accept_min=lo, clip=clip, actives=acts)
-    op = T.trace_any3(scene, o3, d3s, tmin, accept_min=lo, clip=clip, actives=acts,
+    before = T.launches["trace_any3"]
+    ok = T.trace_any3(trace_scene, o3, d3s, tmin, accept_min=lo, clip=clip, actives=acts)
+    assert T.launches["trace_any3"] == before + 1
+    op = T.trace_any3(trace_scene, o3, d3s, tmin, accept_min=lo, clip=clip, actives=acts,
                       impl="plain")
-    for a, b in zip(ok, op):
-        assert int(a.sum()) > 100
+    for j, (a, b) in enumerate(zip(ok, op)):
         assert torch.equal(a, b)
+        live = acts[j] is None or bool(acts[j].any())
+        if masks == "all occluded":
+            assert bool(a.all())
+        elif live:
+            assert int(a.sum()) > n // 50
+        else:
+            assert not bool(a.any())
 
 
 def test_frame_kernel_matches_plain(scene, device):

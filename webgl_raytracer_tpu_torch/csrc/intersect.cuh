@@ -1,6 +1,7 @@
 // Per-ray cluster tracing maths shared by the trace kernels
 // (trace_closest.cu, trace_closest_attrs.cu, trace_any3.cu, trace_any.cu,
-// trace_closest_perray.cu, trace_any_perray.cu).
+// trace_closest_perray.cu, trace_any_perray.cu), and the block and warp
+// schedules they share.
 //
 // Every expression here is the one in ops/wavefront.py (cluster_entry_t,
 // intersect_soa_t), written in the same operation order with float
@@ -49,11 +50,33 @@ __device__ __forceinline__ Clip load_clip(const float* cp, int clip_on) {
   return c;
 }
 
+// The terms of a ray's slab tests that no box changes: per axis the
+// origin, whether the direction is parallel to the axis, and the
+// reciprocal of the direction (of 1 where parallel). A walk over many
+// boxes computes them once instead of three IEEE divisions a box.
+struct SlabRay {
+  float o[3];
+  float inv[3];
+  bool parallel[3];
+};
+
+__device__ __forceinline__ SlabRay slab_ray(const Ray& r) {
+  const float d[3] = {r.dx, r.dy, r.dz};
+  SlabRay s;
+  s.o[0] = r.ox;
+  s.o[1] = r.oy;
+  s.o[2] = r.oz;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    s.parallel[a] = fabsf(d[a]) < 1e-8f;
+    s.inv[a] = 1.0f / (s.parallel[a] ? 1.0f : d[a]);
+  }
+  return s;
+}
+
 // Entry distance into an AABB (lo xyz at box[0..2], hi at box[3..5]);
 // +inf on a miss. ops/wavefront.cluster_entry_t.
-__device__ __forceinline__ float slab_entry(const float* box, const Ray& r) {
-  const float o[3] = {r.ox, r.oy, r.oz};
-  const float d[3] = {r.dx, r.dy, r.dz};
+__device__ __forceinline__ float slab_entry(const float* box, const SlabRay& s) {
   float tn = -kBig;
   float tf = kBig;
   bool ok = true;
@@ -61,19 +84,25 @@ __device__ __forceinline__ float slab_entry(const float* box, const Ray& r) {
   for (int a = 0; a < 3; ++a) {
     const float lo = box[a];
     const float hi = box[3 + a];
-    const bool parallel = fabsf(d[a]) < 1e-8f;
-    const float inv = 1.0f / (parallel ? 1.0f : d[a]);
-    const float t1 = (lo - o[a]) * inv;
-    const float t2 = (hi - o[a]) * inv;
-    tn = fmaxf(tn, parallel ? -kBig : fminf(t1, t2));
-    tf = fminf(tf, parallel ? kBig : fmaxf(t1, t2));
-    ok = ok && (!parallel || (o[a] >= lo && o[a] <= hi));
+    const float t1 = (lo - s.o[a]) * s.inv[a];
+    const float t2 = (hi - s.o[a]) * s.inv[a];
+    tn = fmaxf(tn, s.parallel[a] ? -kBig : fminf(t1, t2));
+    tf = fminf(tf, s.parallel[a] ? kBig : fmaxf(t1, t2));
+    ok = ok && (!s.parallel[a] || (s.o[a] >= lo && s.o[a] <= hi));
   }
   const float tn0 = fmaxf(tn, 0.0f);
   return (ok && tf >= tn0) ? tn0 : INFINITY;
 }
 
-// Sphere quadratic; -1 on a miss.
+__device__ __forceinline__ float slab_entry(const float* box, const Ray& r) {
+  return slab_entry(box, slab_ray(r));
+}
+
+// Sphere quadratic; -1 on a miss. kMissEarly returns as soon as the
+// discriminant says miss, with the same result: a warp whose lanes all
+// miss then skips the IEEE sqrtf sequence (35% of trace_closest's time
+// on the 1000-sphere 1080p primaries, PERF.md).
+template <bool kMissEarly = false>
 __device__ __forceinline__ float sphere_t(const Ray& r, float cx, float cy,
                                           float cz, float ra) {
   const float sx = r.ox - cx;
@@ -83,6 +112,9 @@ __device__ __forceinline__ float sphere_t(const Ray& r, float cx, float cy,
   const float cterm = sx * sx + sy * sy + sz * sz - ra * ra;
   const float disc = b * b - cterm;
   const bool ok = disc >= 0.0f;
+  if (kMissEarly && !ok) {
+    return -1.0f;
+  }
   const float sq = sqrtf(ok ? disc : 0.0f);
   const float t0 = -b - sq;
   const float t1 = -b + sq;
@@ -217,6 +249,87 @@ __device__ __forceinline__ float prim_t(const float* rows, int j, int ctype,
   return -1.0f;
 }
 
+// ---------------------------------------------------------------------------
+// Warp-cooperative sweeps (trace_closest.cu, trace_any3.cu): a warp owns 32
+// rays, one per lane, and sweeps a cluster for one of them at a time, each
+// lane testing primitives lane, lane+32, lane+64, lane+96 of the cluster.
+
+constexpr int kWarp = 32;
+constexpr int kSteps = kLanes / kWarp;    // primitives per lane and cluster
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMixed = -1;                // cluster type of a mixed cluster
+
+// Whether the primitive test of a cluster of this type reads SoA row i.
+__host__ __device__ constexpr bool uses_row(int type, int i) {
+  return type == kSphere     ? i < 4
+         : type == kCylinder ? i < 7
+         : type == kTriangle ? (i < 11 && i != 3 && i != 7)
+                             : true;
+}
+
+// Candidate t of one primitive held in registers (p[i] = its row i), for a
+// cluster of type T (kMixed: each primitive's own type from row 11). The
+// same tests, in the same dispatch, as prim_t; the sphere test returns
+// early on a miss.
+template <int T>
+__device__ __forceinline__ float prim_t_regs(const float (&p)[kRows], const Ray& r,
+                                             const Clip& clip) {
+  if constexpr (T == kSphere) {
+    return sphere_t<true>(r, p[0], p[1], p[2], p[3]);
+  } else if constexpr (T == kCylinder) {
+    return cylinder_t(r, p[0], p[1], p[2], p[3], p[4], p[5], p[6]);
+  } else if constexpr (T == kTriangle) {
+    return triangle_t(r, clip, p[0], p[1], p[2], p[4], p[5], p[6], p[8], p[9], p[10]);
+  } else {
+    const int type = static_cast<int>(p[11]);
+    if (type == kSphere) {
+      return prim_t_regs<kSphere>(p, r, clip);
+    }
+    if (type == kCylinder) {
+      return prim_t_regs<kCylinder>(p, r, clip);
+    }
+    if (type == kTriangle) {
+      return prim_t_regs<kTriangle>(p, r, clip);
+    }
+    return -1.0f;
+  }
+}
+
+// Load the rows a type-T test reads of primitive j of a cluster (rows: its
+// [kRows][kLanes] SoA block in global memory) through the read-only path.
+template <int T>
+__device__ __forceinline__ void load_prim(float (&p)[kRows], const float* __restrict__ rows,
+                                          int j) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    p[i] = uses_row(T, i) ? __ldg(rows + i * kLanes + j) : 0.0f;
+  }
+}
+
+// This lane's kSteps primitives of a cluster: lane + kWarp * q. A warp's
+// load of one row is 128 contiguous bytes.
+template <int T>
+__device__ __forceinline__ void load_lane_prims(float (&p)[kSteps][kRows],
+                                                const float* __restrict__ rows, int lane) {
+#pragma unroll
+  for (int q = 0; q < kSteps; ++q) {
+    load_prim<T>(p[q], rows, lane + kWarp * q);
+  }
+}
+
+// Ray r of lane src, on every lane.
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray b;
+  b.dx = __shfl_sync(kFullMask, r.dx, src);
+  b.dy = __shfl_sync(kFullMask, r.dy, src);
+  b.dz = __shfl_sync(kFullMask, r.dz, src);
+  b.ox = __shfl_sync(kFullMask, r.ox, src);
+  b.oy = __shfl_sync(kFullMask, r.oy, src);
+  b.oz = __shfl_sync(kFullMask, r.oz, src);
+  b.tmin = __shfl_sync(kFullMask, r.tmin, src);
+  return b;
+}
+
 // Copy cluster c's SoA rows into shared memory (all threads take part).
 __device__ __forceinline__ void stage_cluster(float* rows, const float* soa,
                                               int c) {
@@ -226,7 +339,7 @@ __device__ __forceinline__ void stage_cluster(float* rows, const float* soa,
   }
 }
 
-// The block walk of trace_closest.cu and trace_closest_attrs.cu for ray i
+// The block walk of trace_closest_attrs.cu for ray i
 // (one thread per ray; od f32[8,n]: d xyz, centred o xyz, t_min, active).
 // A ray that misses the root AABB (cp[8..13]) or is inactive is a miss.
 // Otherwise it walks the k clusters in index order and sweeps a cluster's

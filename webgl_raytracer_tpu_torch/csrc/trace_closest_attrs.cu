@@ -9,9 +9,11 @@
 // at most 128 B read per hit ray from a table (K*128 rows of 128 B: 1.5 MB
 // at K = 12, 16 MB at K = 128) that stays in the 50 MB L2.
 //
-// Design: the walk is trace_closest.cu's (wrt::closest_block_walk), so t
-// and the winning row are bit for bit the ones trace_closest returns.
-// After it, each hit lane copies its winner's row from the table with
+// Design: the block walk (wrt::closest_block_walk, one thread a ray,
+// clusters staged in shared memory). It takes the same lexicographic
+// (t, row) minimum in index order as trace_closest.cu's warp walk, so t
+// and the winning row are bit for bit the ones trace_closest returns
+// (chip_smoke.py holds the two kernels to each other). After it, each hit lane copies its winner's row from the table with
 // eight 16-byte loads and stores; a miss lane writes the miss row. The TPU
 // kernel extracted the row with a one-hot [block,128]x[128,32] matrix
 // product after every cluster sweep because its vector unit has no

@@ -30,11 +30,15 @@ What bounds them on the H100: per-ray FP32 intersector arithmetic. At the
 1000-sphere scene's K = 12 clusters the whole cluster table is 72 KB; at
 10k spheres (K = 128) 786 KB and at 150k (K = 1976) 12 MB, all inside the
 50 MB L2, so the traces are compute-bound, not bandwidth-bound. The block
-kernels (csrc/trace_closest.cu, trace_any3.cu, trace_any.cu) run one thread
-per ray: a root-AABB gate, then a walk over the clusters in index order,
-skipping each cluster whose AABB the ray misses or enters at or beyond its
-current best t (or t_max), and staging a cluster's 12x128 rows in shared
-memory whenever a thread of the block needs them. The per-ray kernels
+kernels (csrc/trace_closest.cu, trace_any3.cu, trace_any.cu,
+trace_closest_attrs.cu) take a root-AABB gate, then walk the clusters in
+index order, skipping each cluster whose AABB the ray misses or enters at
+or beyond its current best t (or t_max). trace_closest and trace_any3 do
+it warp by warp: the warp's need mask is a ballot, and the lanes sweep a
+needed cluster for one ray at a time, each lane testing 4 of its 128
+primitives held in registers. trace_any and trace_closest_attrs run one
+thread per ray and stage a cluster's 12x128 rows in shared memory whenever
+a thread of the block needs them. The per-ray kernels
 (trace_closest_perray.cu, trace_any_perray.cu) read the rows from global
 memory (L2) instead: divergent rays of one block share few clusters.
 The TPU's block worklists are schedule choices and are not carried over;

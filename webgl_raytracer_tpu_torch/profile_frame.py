@@ -27,9 +27,9 @@ import time
 WIDTH, HEIGHT = 1920, 1080
 TOP_KERNELS = 12
 TIMED_FRAMES = 5
-TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any_kernel",
-                 "trace_closest_perray_kernel", "trace_any_perray_kernel",
-                 "trace_closest_attrs_kernel")
+TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any3_raymajor_kernel",
+                 "trace_any_kernel", "trace_closest_perray_kernel",
+                 "trace_any_perray_kernel", "trace_closest_attrs_kernel")
 TRANSPORTS = (("binned", {}), ("whole batch", {"WRT_CHUNKS": "1"}))
 
 
