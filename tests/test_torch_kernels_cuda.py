@@ -10,6 +10,8 @@ Kernels and plain versions round identically (-fmad=false), so rows,
 occlusion bits and t must agree bit for bit.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,10 @@ pytestmark = pytest.mark.cuda
 
 TRIS = np.array([[[-4, -3.0, -4], [4, -3.0, -4], [0, -3.0, 4]],
                  [[-4, 3.0, -4], [0, 3.0, 4], [4, 3.0, -4]]], np.float32)
+
+
+# A full batch, and one whose last warp is ragged (1013 = 31 * 32 + 21).
+BATCHES = pytest.mark.parametrize("n", [1 << 16, 1013], ids=["full", "ragged"])
 
 
 @pytest.fixture(scope="module")
@@ -91,10 +97,6 @@ def trace_scene(request, device):
     spheres+cylinders+tris over 64 clusters of the three types (the
     shadow fan's ray-major schedule)."""
     return _compile(request.param, device)
-
-
-# A full batch, and one whose last warp is ragged (1013 = 31 * 32 + 21).
-BATCHES = pytest.mark.parametrize("n", [1 << 16, 1013], ids=["full", "ragged"])
 
 
 @BATCHES
@@ -182,11 +184,12 @@ def test_frame_kernel_matches_plain(scene, device):
     assert float(images[0].mean()) > 0.0
 
 
+@BATCHES
 @pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
                          ids=["noclip", "clip"])
-def test_trace_any_kernels_match_plain(any_scene, device, clip):
+def test_trace_any_kernels_match_plain(any_scene, device, clip, n):
     """trace_any and trace_any_perray: kernel == plain == each other."""
-    o3, d3s, acts, tmin = _fan(1 << 16, 19, device, spread=1.0)
+    o3, d3s, acts, tmin = _fan(n, 19, device, spread=1.0)
     kw = dict(t_max=25.0, accept_min=torch.full_like(tmin, 0.01), clip=clip,
               active=acts[0])
     before = dict(T.launches)
@@ -196,14 +199,17 @@ def test_trace_any_kernels_match_plain(any_scene, device, clip):
     assert T.launches["trace_any_perray"] == before["trace_any_perray"] + 1
     bp = T.trace_any(any_scene, o3, d3s[0], tmin, impl="plain", **kw)
     pp = T.trace_any(any_scene, o3, d3s[0], tmin, perray=True, impl="plain", **kw)
-    assert int(bk.sum()) > 100
+    assert int(bk.sum()) > n // 500
     assert torch.equal(bk, bp) and torch.equal(pk, pp) and torch.equal(bk, pk)
 
 
+@BATCHES
 @pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
                          ids=["noclip", "clip"])
-def test_trace_closest_perray_kernel_matches_plain_and_block(any_scene, device, clip):
-    o3, d3s, acts, tmin = _fan(1 << 16, 23, device, spread=1.0)
+def test_trace_closest_perray_kernel_matches_plain_and_block(any_scene, device, clip, n):
+    """On spheres20k (more than 128 clusters) the two-level walk; the
+    ragged batch leaves lanes of the last warp without a ray."""
+    o3, d3s, acts, tmin = _fan(n, 23, device, spread=1.0)
     before = T.launches["trace_closest_perray"]
     tk, rk = T.trace_closest(any_scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
                              perray=True)
@@ -211,10 +217,109 @@ def test_trace_closest_perray_kernel_matches_plain_and_block(any_scene, device, 
     tp, rp = T.trace_closest(any_scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
                              perray=True, impl="plain")
     tb, rb = T.trace_closest(any_scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
-    assert int((rk >= 0).sum()) > 100
+    assert int((rk >= 0).sum()) > n // 500
     for t, r in ((tp, rp), (tb, rb)):
         assert torch.equal(rk, r)
         assert torch.equal(tk.view(torch.int32), t.view(torch.int32))
+
+
+def _copy_cluster(scene, a, b, grow):
+    """The scene with cluster b's primitives replaced by cluster a's and
+    b's box a's grown by `grow` on every side. Each hit in a is then an
+    exact t tie with the same slot of b, which the lower row (a's) must
+    win; with grow > 0 a ray from outside enters b first, so a per-ray
+    walk finds the tie in the higher row first."""
+    c = scene.cluster_size
+    edit = {name: getattr(scene, name).clone()
+            for name in ("cluster_prims", "cluster_soa", "cluster_attr", "cluster_color",
+                         "cluster_bmin", "cluster_bmax")}
+    for name in ("cluster_prims", "cluster_soa", "cluster_attr"):
+        edit[name][b] = edit[name][a]
+    edit["cluster_color"][b * c:(b + 1) * c] = edit["cluster_color"][a * c:(a + 1) * c]
+    edit["cluster_bmin"][b] = edit["cluster_bmin"][a] - grow
+    edit["cluster_bmax"][b] = edit["cluster_bmax"][a] + grow
+    return dataclasses.replace(scene, **edit)
+
+
+def _rays_at_cluster(scene, a, n, seed, device):
+    """n rays from outside cluster a's box toward its spheres' centres."""
+    rng = np.random.default_rng(seed)
+    p = scene.cluster_prims[a].cpu().numpy()
+    centres = p[p[:, 11] == 1.0][:, :3]
+    size = float(np.linalg.norm((scene.cluster_bmax[a] - scene.cluster_bmin[a]).cpu().numpy()))
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o = (centres[np.arange(n) % len(centres)] + u * (1.01 * size + 0.1)).astype(np.float32)
+    d = (-u).astype(np.float32)
+    return (tuple(torch.as_tensor(o[:, i], device=device) for i in range(3)),
+            tuple(torch.as_tensor(d[:, i], device=device) for i in range(3)))
+
+
+def _box_face_rays(scene, n, seed, device):
+    """n rays whose origins lie exactly on a plane of a cluster box (a
+    random cluster, axis and side; the other two coordinates inside the
+    box), half pointing into the box through that face and half out of
+    it. Their entry into that box is a zero, which fmaxf may give as
+    -0.0."""
+    rng = np.random.default_rng(seed)
+    lo = scene.cluster_bmin.cpu().numpy()
+    hi = scene.cluster_bmax.cpu().numpy()
+    k = rng.integers(0, lo.shape[0], n)
+    axis = rng.integers(0, 3, n)
+    on_hi = rng.random(n) < 0.5
+    rows = np.arange(n)
+    o = (lo[k] + rng.random((n, 3)).astype(np.float32) * (hi[k] - lo[k])).astype(np.float32)
+    o[rows, axis] = np.where(on_hi, hi[k, axis], lo[k, axis])
+    d = rng.normal(size=(n, 3))
+    inward = rng.random(n) < 0.5
+    d[rows, axis] = np.abs(d[rows, axis]) * np.where(on_hi == inward, -1.0, 1.0)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return (tuple(torch.as_tensor(o[:, i], device=device) for i in range(3)),
+            tuple(torch.as_tensor(d[:, i], device=device) for i in range(3)))
+
+
+def _perray_against_plain_and_block(scene, o3, d3, device):
+    """Both per-ray kernels against their plain versions and the block
+    kernels, bit for bit. Returns the per-ray kernel's rows."""
+    n = o3[0].shape[0]
+    tmin = torch.full((n,), 1e-3, device=device)
+    before = dict(T.launches)
+    tk, rk = T.trace_closest(scene, o3, d3, tmin, perray=True)
+    fk = T.trace_any(scene, o3, d3, tmin, t_max=25.0, accept_min=0.01, perray=True)
+    assert T.launches["trace_closest_perray"] == before["trace_closest_perray"] + 1
+    assert T.launches["trace_any_perray"] == before["trace_any_perray"] + 1
+    for impl, per in (("plain", True), (None, False)):
+        t, r = T.trace_closest(scene, o3, d3, tmin, perray=per, impl=impl)
+        assert torch.equal(rk, r)
+        assert torch.equal(tk.view(torch.int32), t.view(torch.int32))
+        f = T.trace_any(scene, o3, d3, tmin, t_max=25.0, accept_min=0.01, perray=per,
+                        impl=impl)
+        assert torch.equal(fk, f)
+    assert int(fk.sum()) > n // 50
+    return rk
+
+
+@pytest.mark.parametrize("grow", [0.0, 0.5], ids=["same box", "grown box"])
+@pytest.mark.parametrize("name", ["spheres400", "spheres20k"])
+def test_perray_kernels_settle_cross_cluster_ties(device, name, grow):
+    """The lowest row wins an exact tie between two clusters, whichever the
+    walk visits first; on spheres20k the two clusters lie in different
+    groups (the two-level walk)."""
+    scene = _compile(name, device)
+    a, b = 0, scene.num_clusters - 1
+    ties = _copy_cluster(scene, a, b, grow)
+    o3, d3 = _rays_at_cluster(ties, a, 4000, 31, device)
+    rk = _perray_against_plain_and_block(ties, o3, d3, device)
+    assert int((rk // 128 == a).sum()) > 1000
+    assert not bool((rk // 128 == b).any())
+
+
+@pytest.mark.parametrize("name", ["spheres400", "caffeine+tris", "spheres20k"])
+def test_perray_kernels_on_box_face_rays(device, name):
+    scene = _compile(name, device)
+    o3, d3 = _box_face_rays(scene, 4000, 37, device)
+    rk = _perray_against_plain_and_block(scene, o3, d3, device)
+    assert int((rk >= 0).sum()) > 250
 
 
 def test_sky_frame_kernel_matches_plain(device):

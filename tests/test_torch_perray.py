@@ -20,6 +20,8 @@ lies within GRAZE of the boundary (an occlusion bit: against some primitive
 of the scene), and at most MAX_GRAZE rays of a batch may differ.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -180,11 +182,10 @@ def _nearest_graze(js, o, d, ray):
     return min(_graze(js, o, d, ray, r) for r in rows)
 
 
-@pytest.mark.parametrize("name", list(SCENES))
-def test_closest_perray_plain_matches_pallas(name):
-    js, ps = _scene(name)
-    _, spread, zoff, _ = SCENES[name]
-    o, d, tmin = _rays(5, 1500, spread, zoff)
+def _closest_matches_pallas(js, ps, o, d, tmin, what):
+    """The port's per-ray plain walk: equal to its block walk bit for bit,
+    and to the Pallas per-ray kernel under the grazing rule. Returns the
+    port's rows."""
     jt, jr = PS.trace_closest(js, _j3(o), _j3(d), jnp.asarray(tmin), interpret=True,
                               perray=True)
     jt, jr = np.asarray(jt), np.asarray(jr)
@@ -192,19 +193,18 @@ def test_closest_perray_plain_matches_pallas(name):
     bt, br = T.trace_closest(ps, _p3(o), _p3(d), torch.as_tensor(tmin))
     assert int((pr >= 0).sum()) > 50
     assert torch.equal(pr, br) and torch.equal(pt.view(torch.int32), bt.view(torch.int32))
-    bad = _assert_rows(js, o, d, jr, pr.numpy(), name)
+    bad = _assert_rows(js, o, d, jr, pr.numpy(), what)
     keep = np.ones(len(jr), bool)
     keep[bad] = False
     np.testing.assert_allclose(pt.numpy()[keep], jt[keep], rtol=T_RTOL)
+    return pr.numpy()
 
 
-@pytest.mark.parametrize("name", list(SCENES))
-def test_any_and_any_perray_plain_match_pallas(name):
-    js, ps = _scene(name)
-    _, spread, zoff, t_max = SCENES[name]
-    o, d, tmin = _rays(7, 1500, spread, zoff)
-    lo = np.full(1500, 0.01, np.float32)
-    act = np.arange(1500) % 5 != 0
+def _any_matches_pallas(js, ps, o, d, tmin, t_max, act, what):
+    """The port's per-ray and block plain occlusion: equal to each other,
+    and to the Pallas block and per-ray kernels under the grazing rule."""
+    n = o.shape[1]
+    lo = np.full(n, 0.01, np.float32)
     kw = dict(t_max=t_max, accept_min=jnp.asarray(lo), active=jnp.asarray(act),
               interpret=True)
     jb = np.asarray(PS.trace_any(js, _j3(o), _j3(d), jnp.asarray(tmin), **kw))
@@ -216,9 +216,126 @@ def test_any_and_any_perray_plain_match_pallas(name):
     assert not pb.numpy()[~act].any()
     assert 20 < int(pb.sum()) < int(act.sum())
     bad = np.nonzero((jb != pb.numpy()) | (jp != pb.numpy()))[0]
-    assert len(bad) <= MAX_GRAZE, f"{name}: bits differ on {bad.tolist()}"
+    assert len(bad) <= MAX_GRAZE, f"{what}: bits differ on {bad.tolist()}"
     for i in bad:
-        assert _nearest_graze(js, o, d, i) < GRAZE, f"{name}: ray {i} differs"
+        assert _nearest_graze(js, o, d, i) < GRAZE, f"{what}: ray {i} differs"
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_closest_perray_plain_matches_pallas(name):
+    js, ps = _scene(name)
+    _, spread, zoff, _ = SCENES[name]
+    o, d, tmin = _rays(5, 1500, spread, zoff)
+    _closest_matches_pallas(js, ps, o, d, tmin, name)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_any_and_any_perray_plain_match_pallas(name):
+    js, ps = _scene(name)
+    _, spread, zoff, t_max = SCENES[name]
+    o, d, tmin = _rays(7, 1500, spread, zoff)
+    _any_matches_pallas(js, ps, o, d, tmin, t_max, np.arange(1500) % 5 != 0, name)
+
+
+def _box_face_rays(js, n, seed):
+    """n rays whose origins lie exactly on a plane of a cluster box (a
+    random cluster, axis and side; the other two coordinates inside the
+    box), half pointing into the box through that face and half out of
+    it: their entries into that box are zeros, which the CUDA kernels
+    order by bit pattern."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(js.cluster_bmin), np.asarray(js.cluster_bmax)
+    k = rng.integers(0, lo.shape[0], n)
+    axis = rng.integers(0, 3, n)
+    on_hi = rng.random(n) < 0.5
+    rows = np.arange(n)
+    o = (lo[k] + rng.random((n, 3)).astype(np.float32) * (hi[k] - lo[k])).astype(np.float32)
+    o[rows, axis] = np.where(on_hi, hi[k, axis], lo[k, axis])
+    d = rng.normal(size=(n, 3))
+    inward = rng.random(n) < 0.5
+    d[rows, axis] = np.abs(d[rows, axis]) * np.where(on_hi == inward, -1.0, 1.0)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return (np.ascontiguousarray(o.T), np.ascontiguousarray(d.T),
+            np.full(n, 1e-3, np.float32))
+
+
+FACE_SCENES = ("spheres900", "spheres+cylinders", "two-level 160x128 spheres")
+
+
+@pytest.mark.parametrize("name", FACE_SCENES)
+def test_box_face_rays_match_pallas(name):
+    """Rays that start on cluster box planes: the plain per-ray walk that
+    the CUDA kernels are held to on the card, against the Pallas per-ray
+    kernels."""
+    js, ps = _scene(name)
+    o, d, tmin = _box_face_rays(js, 1500, 43)
+    _closest_matches_pallas(js, ps, o, d, tmin, f"{name} box faces")
+    _any_matches_pallas(js, ps, o, d, tmin, SCENES[name][3], np.ones(1500, bool),
+                        f"{name} box faces")
+
+
+def _copy_cluster(js, a, b, grow):
+    """js with cluster b's primitives replaced by cluster a's and b's box
+    a's grown by `grow` on every side: each hit in a is then an exact t tie
+    with the same slot of b."""
+    c = js.cluster_size
+    edit = {name: np.array(getattr(js, name))
+            for name in ("cluster_prims", "cluster_soa", "cluster_attr", "cluster_color",
+                         "cluster_bmin", "cluster_bmax")}
+    for name in ("cluster_prims", "cluster_soa", "cluster_attr"):
+        edit[name][b] = edit[name][a]
+    edit["cluster_color"][b * c:(b + 1) * c] = edit["cluster_color"][a * c:(a + 1) * c]
+    edit["cluster_bmin"][b] = edit["cluster_bmin"][a] - grow
+    edit["cluster_bmax"][b] = edit["cluster_bmax"][a] + grow
+    return dataclasses.replace(js, **edit)
+
+
+def _rays_at_cluster(js, a, n, seed):
+    """n rays from outside cluster a's box toward its spheres' centres."""
+    rng = np.random.default_rng(seed)
+    p = np.asarray(js.cluster_prims)[a]
+    centres = p[p[:, 11] == 1.0][:, :3]
+    size = float(np.linalg.norm(np.asarray(js.cluster_bmax)[a] - np.asarray(js.cluster_bmin)[a]))
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o = (centres[np.arange(n) % len(centres)] + u * (1.01 * size + 0.1)).astype(np.float32)
+    return (np.ascontiguousarray(o.T), np.ascontiguousarray((-u).T.astype(np.float32)),
+            np.full(n, 1e-3, np.float32))
+
+
+@pytest.mark.parametrize("grow", [0.0, 0.5], ids=["same box", "grown box"])
+def test_cross_cluster_ties(grow):
+    """Cluster 0 copied into the last cluster: every ray that ends in
+    cluster 0 ties exactly with the copy's same slot, and the port's
+    lexicographic (t, row) rule keeps cluster 0's lower row in both walks.
+    With the same box both walks visit cluster 0 first (equal entries,
+    lowest cluster first) and the Pallas per-ray kernel's rule (strict <
+    per lane slot in visiting order, then the lowest packed row) keeps it
+    too, so the two are compared. With the copy's box grown, rays enter the
+    copy first and the Pallas rule keeps the copy's row: the rules cannot
+    agree there (ROADMAP Queue 3, first entry), so the port's per-ray walk
+    is held to its index-order walk (closest_plain), and the Pallas rows to
+    the copy's, ray by ray."""
+    js0, _ = _scene("spheres900")
+    a, b = 0, js0.num_clusters - 1
+    js = _copy_cluster(js0, a, b, grow)
+    ps = scene_from_numpy(numpy_fields(js), device="cpu")
+    o, d, tmin = _rays_at_cluster(js, a, 1500, 41)
+    if grow == 0.0:
+        pr = _closest_matches_pallas(js, ps, o, d, tmin, "ties, same box")
+    else:
+        pt, pr = T.trace_closest(ps, _p3(o), _p3(d), torch.as_tensor(tmin), perray=True)
+        bt, br = T.closest_plain(ps.trace_operands, T.closest_operand(
+            _p3(o), _p3(d), torch.as_tensor(tmin), None, ps.trace_operands.mid),
+            *T.clip_operand(None, ps.trace_operands))
+        assert torch.equal(pr, br) and torch.equal(pt.view(torch.int32), bt.view(torch.int32))
+        pr = pr.numpy()
+        jr = np.asarray(PS.trace_closest(js, _j3(o), _j3(d), jnp.asarray(tmin),
+                                         interpret=True, perray=True)[1])
+        copy_rows = np.where(pr // 128 == a, pr + (b - a) * 128, pr)
+        _assert_rows(js, o, d, jr, copy_rows, "ties, grown box")
+    assert int((pr // 128 == a).sum()) > 1000
+    assert not (pr // 128 == b).any()
 
 
 def test_clip_perray_plain_matches_pallas():

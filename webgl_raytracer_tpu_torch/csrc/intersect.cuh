@@ -1,7 +1,9 @@
 // Per-ray cluster tracing maths shared by the trace kernels
 // (trace_closest.cu, trace_closest_attrs.cu, trace_any3.cu, trace_any.cu,
-// trace_closest_perray.cu, trace_any_perray.cu), and the block and warp
-// schedules they share.
+// trace_closest_perray.cu, trace_any_perray.cu), and the schedules they
+// share: the block walk (trace_closest_attrs.cu), the warp-cooperative
+// cluster sweeps (trace_closest.cu, trace_any3.cu and the per-ray kernels)
+// and the per-ray warp walk (trace_closest_perray.cu, trace_any_perray.cu).
 //
 // Every expression here is the one in ops/wavefront.py (cluster_entry_t,
 // intersect_soa_t), written in the same operation order with float
@@ -22,6 +24,9 @@ constexpr int kLanes = 128;             // primitives per cluster
 constexpr int kRows = 12;               // SoA rows per cluster
 constexpr int kClusterFloats = kRows * kLanes;
 constexpr int kThreads = 128;           // rays per block
+// Blocks per SM the warp-cooperative kernels' register budget must allow:
+// at most 128 registers a thread, 16 resident warps.
+constexpr int kMinBlocks = 4;
 constexpr int kGroup = 128;             // clusters per group (per-ray walk)
 
 constexpr int kTriangle = 0;
@@ -317,6 +322,15 @@ __device__ __forceinline__ void load_lane_prims(float (&p)[kSteps][kRows],
   }
 }
 
+// The warp's lexicographic minimum (kmin, imin) of the lanes' (key, idx)
+// pairs, on every lane: the least key, then the least idx among the lanes
+// holding it.
+__device__ __forceinline__ void warp_min_pair(unsigned key, unsigned idx, unsigned& kmin,
+                                              unsigned& imin) {
+  kmin = __reduce_min_sync(kFullMask, key);
+  imin = __reduce_min_sync(kFullMask, key == kmin ? idx : ~0u);
+}
+
 // Ray r of lane src, on every lane.
 __device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
   Ray b;
@@ -398,67 +412,146 @@ __device__ __forceinline__ float closest_block_walk(
   return best;
 }
 
-// The per-ray walk of trace_closest_perray.cu and trace_any_perray.cu:
-// visits the clusters one ray enters before cap(), front to back. The
-// outer loop takes the kGroup-cluster groups (box gbox[g]) in order of the
-// ray's entry into their AABBs, lowest index first among equal entries,
-// recomputing the entries at each pop instead of storing them; inside a
-// group it stores the entries of the clusters entered before cap() and
-// pops the nearest (lowest cluster first among equal entries). cap() is
-// read before every pop, so a closest hit that shrinks it prunes the rest.
-// visit(c) returns true to end the walk (an occluder found).
+// ---------------------------------------------------------------------------
+// The warp sweeps of one broadcast ray (the per-ray kernels, and
+// trace_any3.cu's ray-major schedule): every lane calls them with the same
+// ray b, and each lane tests primitives lane, lane+32, lane+64, lane+96.
+
+// Whether a primitive of cluster rows (type T) is hit by b with
+// lo < t < hi, each lane loading its own primitive of each step: the sweep
+// ends after the 32-primitive step that holds the first hit.
+template <int T>
+__device__ __forceinline__ bool any_sweep(const float* __restrict__ rows, int lane,
+                                          const Ray& b, float lo, float hi,
+                                          const Clip& clip) {
+#pragma unroll
+  for (int q = 0; q < kSteps; ++q) {
+    float p[kRows];
+    load_prim<T>(p, rows, lane + kWarp * q);
+    const float ts = prim_t_regs<T>(p, b, clip);
+    if (__any_sync(kFullMask, ts > lo && ts < hi)) {
+      return true;
+    }
+  }
+  return false;
+}
+
+// Sweep cluster c (type T, rows: its SoA block) for b: (best, best_row),
+// the same on every lane, become the lexicographic (t, row) minimum of
+// themselves and the cluster's primitives with t > 0. A per-ray walk
+// visits clusters out of index order, so an equal t in a lower row found
+// later must still win: the lanes keep candidates with t <= best, and the
+// update is lexicographic (trace_closest.cu's `t < cap` and `t < best` are
+// right only for visits in index order).
+template <int T>
+__device__ __forceinline__ void closest_sweep_perray(const float* __restrict__ rows, int c,
+                                                     int lane, const Ray& b,
+                                                     const Clip& clip, float& best,
+                                                     int& best_row) {
+  float p[kSteps][kRows];
+  load_lane_prims<T>(p, rows, lane);
+  float t = INFINITY;
+  int j = kLanes;
+#pragma unroll
+  for (int q = 0; q < kSteps; ++q) {
+    const float ts = prim_t_regs<T>(p[q], b, clip);
+    if (ts > 0.0f && ts <= best && ts < t) {
+      t = ts;
+      j = lane + kWarp * q;
+    }
+  }
+  // t > 0, so its bit pattern orders as its value does (INFINITY: none).
+  unsigned tw, jw;
+  warp_min_pair(__float_as_uint(t), static_cast<unsigned>(j), tw, jw);
+  const float tb = __uint_as_float(tw);
+  const int row = c * kLanes + static_cast<int>(jw);
+  if (tb < best || (tb == best && row < best_row)) {
+    best = tb;
+    best_row = row;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The per-ray warp walk of trace_closest_perray.cu and trace_any_perray.cu.
+
+static_assert(kGroup == kSteps * kWarp, "a lane holds kSteps cluster entries of a group");
+
+// An entry as the key of an unsigned warp reduction. Entries are +0.0 or
+// more, or +inf, and such floats order as their bit patterns do; but for a
+// ray whose origin lies on a box plane slab_entry's fmaxf(-0.0, 0.0) may
+// give -0.0 (IEEE leaves the sign open), whose bits sort after +inf. Adding
+// +0.0 turns -0.0 into +0.0 and leaves every other value as it is.
+__device__ __forceinline__ unsigned entry_key(float e) { return __float_as_uint(e + 0.0f); }
+
+// Visit the clusters that ray s enters before cap(), front to back, with
+// the whole warp: every lane calls it with the same ray, cap and visit.
+// The groups of kGroup clusters (boxes gbox[0..ng)) are popped in order of
+// the ray's entry into them, the lowest group first among equal entries:
+// at each pop lane q tests groups q, q+32, ... (one box a lane up to 32
+// groups) for the nearest after the last one popped, and the walk ends at
+// a group entered at or beyond cap(). Inside a group lane j holds the
+// entries of clusters j, j+32, j+64, j+96 that lie before cap() at the
+// group's start, and the warp pops the nearest, the lowest cluster first
+// among equal entries, while it lies before cap(). cap() is read at every
+// pop, so a closest hit that shrinks it prunes the rest. visit(c) returns
+// true to end the walk (an occluder found). Within a group this is the
+// order of the plain version's flat walk (ops/trace.py _perray_walk).
 template <class Cap, class Visit>
-__device__ __forceinline__ void walk_front_to_back(const float* box,
-                                                   const float* gbox, int ng,
-                                                   int k, const Ray& r,
-                                                   Cap cap, Visit visit) {
+__device__ __forceinline__ void perray_walk(const float* __restrict__ box,
+                                            const float* __restrict__ gbox, int ng, int k,
+                                            const SlabRay& s, int lane, Cap cap,
+                                            Visit visit) {
   float last_e = -INFINITY;
   int last_g = -1;
   for (;;) {
     float ge = INFINITY;
     int g = -1;
-    for (int q = 0; q < ng; ++q) {
-      const float e = slab_entry(gbox + 6 * q, r);
+    for (int q = lane; q < ng; q += kWarp) {
+      const float e = slab_entry(gbox + 6 * q, s);
       const bool after = e > last_e || (e == last_e && q > last_g);
       if (after && e < ge) {
         ge = e;
         g = q;
       }
     }
-    if (g < 0 || !(ge < cap())) {
+    unsigned gk, gq;
+    warp_min_pair(entry_key(ge), static_cast<unsigned>(g), gk, gq);
+    last_e = __uint_as_float(gk);
+    if (!(last_e < cap())) {
       return;
     }
-    last_e = ge;
-    last_g = g;
+    last_g = static_cast<int>(gq);
 
-    const int c0 = g * kGroup;
+    const int c0 = last_g * kGroup;
     const int m = min(kGroup, k - c0);
     const float limit = cap();
-    float ev[kGroup];
-    unsigned char ej[kGroup];
-    int count = 0;
-    for (int j = 0; j < m; ++j) {
-      const float e = slab_entry(box + 6 * (c0 + j), r);
-      if (e < limit) {
-        ev[count] = e;
-        ej[count] = static_cast<unsigned char>(j);
-        ++count;
-      }
+    float ev[kSteps];
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q) {
+      const int j = lane + kWarp * q;
+      const float e = j < m ? slab_entry(box + 6 * (c0 + j), s) : INFINITY;
+      ev[q] = e < limit ? e + 0.0f : INFINITY;
     }
     for (;;) {
       float e = INFINITY;
-      int p = -1;
-      for (int q = 0; q < count; ++q) {
+      int j = -1;
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q) {
         if (ev[q] < e) {
           e = ev[q];
-          p = q;
+          j = lane + kWarp * q;
         }
       }
-      if (p < 0 || !(e < cap())) {
+      unsigned ek, jm;
+      warp_min_pair(entry_key(e), static_cast<unsigned>(j), ek, jm);
+      if (!(__uint_as_float(ek) < cap())) {
         break;
       }
-      ev[p] = INFINITY;
-      if (visit(c0 + ej[p])) {
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q) {
+        ev[q] = lane + kWarp * q == static_cast<int>(jm) ? INFINITY : ev[q];
+      }
+      if (visit(c0 + static_cast<int>(jm))) {
         return;
       }
     }

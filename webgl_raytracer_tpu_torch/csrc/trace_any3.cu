@@ -50,9 +50,6 @@
 
 namespace {
 
-// Blocks per SM the register budget must allow: at most 128 registers a
-// thread, 16 resident warps.
-constexpr int kMinBlocks = 4;
 // Scenes of at least this many clusters take the ray-major schedule. On
 // the H100 (chip_smoke.py's sky-lit 1080p bounce-0 fans, each schedule
 // forced at every K, PERF.md) the cluster-major one was 27%, 16% and 14%
@@ -128,7 +125,7 @@ __device__ __forceinline__ void any3_cluster(const float* __restrict__ rows, int
   }
 }
 
-__global__ void __launch_bounds__(wrt::kThreads, kMinBlocks)
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any3_kernel(const float* __restrict__ od, long long n,
                   const float* __restrict__ soa,
                   const float* __restrict__ box,
@@ -181,25 +178,9 @@ trace_any3_kernel(const float* __restrict__ od, long long n,
   }
 }
 
-// Ray-major: whether a primitive of cluster rows (type T) occludes the
-// broadcast ray b, each lane loading its own primitive of each step.
-template <int T>
-__device__ __forceinline__ bool any_cluster(const float* __restrict__ rows, int lane,
-                                            const wrt::Ray& b, float lo,
-                                            const wrt::Clip& clip) {
-#pragma unroll
-  for (int q = 0; q < wrt::kSteps; ++q) {
-    float p[wrt::kRows];
-    wrt::load_prim<T>(p, rows, lane + wrt::kWarp * q);
-    const float ts = wrt::prim_t_regs<T>(p, b, clip);
-    if (__any_sync(wrt::kFullMask, ts > lo && ts < wrt::kBig)) {
-      return true;
-    }
-  }
-  return false;
-}
-
-__global__ void __launch_bounds__(wrt::kThreads, kMinBlocks)
+// Ray-major: the warp sweeps each cluster its broadcast ray enters with
+// intersect.cuh's any_sweep (t_max 1e20) until one occludes it.
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any3_raymajor_kernel(const float* __restrict__ od, long long n,
                            const float* __restrict__ soa,
                            const float* __restrict__ box,
@@ -232,16 +213,16 @@ trace_any3_raymajor_kernel(const float* __restrict__ od, long long n,
           const float* rows = soa + static_cast<long long>(cc) * wrt::kClusterFloats;
           switch (ct[cc]) {
             case wrt::kSphere:
-              hit = any_cluster<wrt::kSphere>(rows, lane, b, lo, clip);
+              hit = wrt::any_sweep<wrt::kSphere>(rows, lane, b, lo, wrt::kBig, clip);
               break;
             case wrt::kCylinder:
-              hit = any_cluster<wrt::kCylinder>(rows, lane, b, lo, clip);
+              hit = wrt::any_sweep<wrt::kCylinder>(rows, lane, b, lo, wrt::kBig, clip);
               break;
             case wrt::kTriangle:
-              hit = any_cluster<wrt::kTriangle>(rows, lane, b, lo, clip);
+              hit = wrt::any_sweep<wrt::kTriangle>(rows, lane, b, lo, wrt::kBig, clip);
               break;
             case wrt::kMixed:
-              hit = any_cluster<wrt::kMixed>(rows, lane, b, lo, clip);
+              hit = wrt::any_sweep<wrt::kMixed>(rows, lane, b, lo, wrt::kBig, clip);
               break;
             default:
               break;

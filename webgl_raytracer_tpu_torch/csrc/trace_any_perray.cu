@@ -4,16 +4,19 @@
 //
 // Replaces the TPU kernel `_make_any_kernel_perray` of
 // webgl_raytracer_tpu/ops/pallas_trace.py. Plain version and semantics:
-// ops/trace.py (_perray_walk, trace_any_perray). Its bits equal
+// ops/trace.py (_perray_walk, trace_any with perray=True). Its bits equal
 // trace_any.cu's: both OR the same predicate over the clusters entered
 // before t_max.
 //
 // Bound on the H100: FP32 intersector arithmetic; rows are read from
-// global memory (L2), as in trace_closest_perray.cu.
+// global memory (L2), as in trace_closest_perray.cu, and the schedule is
+// what loses time there too.
 //
-// Design: one thread per ray (intersect.cuh walk_front_to_back) with the
-// fixed cap t_max; the walk ends at the first primitive with
-// accept_lo < ts < t_max.
+// Design: trace_closest_perray.cu's warp walk (intersect.cuh perray_walk)
+// with the fixed cap t_max: a warp walks its rays one at a time, and sweeps
+// each popped cluster with intersect.cuh's any_sweep, 32 primitives a step
+// with the predicate accept_lo < ts < t_max and __any_sync after each step;
+// the ray's walk ends after the step that holds its first hit.
 //
 // Operands: od f32[10,n] as trace_any.cu; gbox as trace_closest_perray.cu.
 // Output: found i32[n] (1 occluded, 0 not or inactive).
@@ -22,7 +25,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(wrt::kThreads)
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any_perray_kernel(const float* __restrict__ od, long long n,
                         const float* __restrict__ soa,
                         const float* __restrict__ box,
@@ -31,39 +34,61 @@ trace_any_perray_kernel(const float* __restrict__ od, long long n,
                         const float* __restrict__ cp, int clip_on,
                         int* __restrict__ found_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
+  const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
+  wrt::Ray r{};
+  bool act = false;
+  float hi = 0.0f;
+  float lo = 0.0f;
+  if (i < n) {
+    r.dx = od[i];
+    r.dy = od[n + i];
+    r.dz = od[2 * n + i];
+    r.ox = od[3 * n + i];
+    r.oy = od[4 * n + i];
+    r.oz = od[5 * n + i];
+    r.tmin = od[6 * n + i];
+    act = od[7 * n + i] > 0.0f;
+    hi = od[8 * n + i];
+    lo = od[9 * n + i];
   }
-  wrt::Ray r;
-  r.dx = od[i];
-  r.dy = od[n + i];
-  r.dz = od[2 * n + i];
-  r.ox = od[3 * n + i];
-  r.oy = od[4 * n + i];
-  r.oz = od[5 * n + i];
-  r.tmin = od[6 * n + i];
-  const float hi = od[8 * n + i];
-  const float lo = od[9 * n + i];
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
 
   bool found = false;
-  if (od[7 * n + i] > 0.0f) {
-    wrt::walk_front_to_back(
-        box, gbox, ng, k, r, [&] { return hi; },
+  unsigned todo = __ballot_sync(wrt::kFullMask, act);
+  while (todo != 0u) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const wrt::Ray b = wrt::shfl_ray(r, src);
+    const float hb = __shfl_sync(wrt::kFullMask, hi, src);
+    const float lb = __shfl_sync(wrt::kFullMask, lo, src);
+    bool hit = false;
+    wrt::perray_walk(
+        box, gbox, ng, k, wrt::slab_ray(b), lane, [&] { return hb; },
         [&](int c) {
           const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
-          const int ctype = ct[c];
-          for (int l = 0; l < wrt::kLanes; ++l) {
-            const float ts = wrt::prim_t(rows, l, ctype, r, clip);
-            if (ts > lo && ts < hi) {
-              found = true;
-              return true;
-            }
+          switch (ct[c]) {
+            case wrt::kSphere:
+              hit = wrt::any_sweep<wrt::kSphere>(rows, lane, b, lb, hb, clip);
+              break;
+            case wrt::kCylinder:
+              hit = wrt::any_sweep<wrt::kCylinder>(rows, lane, b, lb, hb, clip);
+              break;
+            case wrt::kTriangle:
+              hit = wrt::any_sweep<wrt::kTriangle>(rows, lane, b, lb, hb, clip);
+              break;
+            case wrt::kMixed:
+              hit = wrt::any_sweep<wrt::kMixed>(rows, lane, b, lb, hb, clip);
+              break;
+            default:
+              break;
           }
-          return false;
+          return hit;
         });
+    found = found || (hit && lane == src);
   }
-  found_out[i] = found ? 1 : 0;
+  if (i < n) {
+    found_out[i] = found ? 1 : 0;
+  }
 }
 
 }  // namespace

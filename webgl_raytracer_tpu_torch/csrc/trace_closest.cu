@@ -47,10 +47,6 @@
 
 namespace {
 
-// Blocks per SM the register budget must allow: at most 128 registers a
-// thread, 16 resident warps.
-constexpr int kMinBlocks = 4;
-
 // Sweep cluster c (type T, rows: its SoA block) for the warp's rays in
 // `need`; each such ray keeps the lexicographic (t, row) minimum over the
 // primitives with 0 < t < best where one exists.
@@ -78,9 +74,8 @@ __device__ __forceinline__ void closest_cluster(const float* __restrict__ rows, 
     }
     // The warp's lexicographic (t, row) minimum: t > 0, so its bit
     // pattern orders as its value does (INFINITY: no candidate).
-    const unsigned tw = __reduce_min_sync(wrt::kFullMask, __float_as_uint(t));
-    const unsigned jw = __reduce_min_sync(
-        wrt::kFullMask, __float_as_uint(t) == tw ? static_cast<unsigned>(j) : ~0u);
+    unsigned tw, jw;
+    wrt::warp_min_pair(__float_as_uint(t), static_cast<unsigned>(j), tw, jw);
     if (lane == src && __uint_as_float(tw) < best) {
       best = __uint_as_float(tw);
       best_row = c * wrt::kLanes + static_cast<int>(jw);
@@ -88,7 +83,7 @@ __device__ __forceinline__ void closest_cluster(const float* __restrict__ rows, 
   }
 }
 
-__global__ void __launch_bounds__(wrt::kThreads, kMinBlocks)
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_closest_kernel(const float* __restrict__ od, long long n,
                      const float* __restrict__ soa,
                      const float* __restrict__ box,

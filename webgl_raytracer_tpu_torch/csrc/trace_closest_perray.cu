@@ -4,23 +4,34 @@
 //
 // Replaces the TPU kernel `_make_closest_kernel_perray` of
 // webgl_raytracer_tpu/ops/pallas_trace.py. Plain version and semantics:
-// ops/trace.py (_perray_walk, trace_closest_perray). Its (t, row) equal
-// trace_closest.cu's.
+// ops/trace.py (_perray_walk, trace_closest with perray=True). Its (t,
+// row) equal trace_closest.cu's.
 //
 // Bound on the H100: FP32 intersector arithmetic. A secondary ray's own
-// chain of clusters is short, while a block of divergent rays touches the
-// union of all their chains; so each thread walks its own chain and reads
-// the cluster rows from global memory, where they stay in the 50 MB L2
-// (786 KB at K = 128, 12 MB at K = 1976), instead of staging them in
-// shared memory for the whole block as trace_closest.cu does. The TPU
-// kernel's bf16 mantissa-split one-hot gather is a TPU workaround for a
-// per-ray row load: here it is a plain load.
+// chain of clusters is short, while a warp of divergent rays touches the
+// union of all their chains; so each ray walks its own chain and the
+// cluster rows are read from global memory, where they stay in the 50 MB
+// L2 (786 KB at K = 128, 12 MB at K = 1976). The TPU kernel's bf16
+// mantissa-split one-hot gather is a TPU workaround for a per-ray row
+// load: here it is a plain load. What loses time is the schedule: one
+// thread per ray, sweeping 128 primitives in series while its warp's other
+// lanes sit in other clusters, holds the warp for its longest chain, and
+// each row load of such a warp touches 32 sectors for 4 bytes of each.
 //
-// Design: one thread per ray (intersect.cuh walk_front_to_back): groups of
-// 128 clusters by group-AABB entry, inside a group the clusters by entry,
-// each popped while its entry is before the ray's best t, with the
-// lexicographic (t, row) update, so the winner is the one the index-order
-// walk finds.
+// Design: no shared memory and no per-thread arrays. A warp owns 32 rays
+// and walks them one at a time with all its lanes (intersect.cuh
+// perray_walk): the active rays are taken from a __ballot_sync in lane
+// order, the ray is broadcast by __shfl_sync and its reciprocal direction
+// computed once. Its groups of 128 clusters are popped by its entry into
+// their boxes; inside a group each lane tests 4 cluster boxes, and two
+// __reduce_min_sync pop the nearest entry (the lowest cluster among equal
+// entries) while it lies before the ray's best t. The warp sweeps a popped
+// cluster with each lane testing 4 primitives loaded into registers by
+// coalesced 128-byte row loads (closest_sweep_perray); two more
+// __reduce_min_sync take the cluster's lexicographic (t, row) minimum,
+// which updates the ray's best lexicographically, so the winner is the one
+// the index-order walk finds. Lanes past n and inactive rays take part in
+// every collective and write only their own miss.
 //
 // Operands: od f32[8,n] as trace_closest.cu; soa, box, ct, cp as there;
 // gbox f32[ng,6] group AABBs (clusters [g*128, g*128+128)).
@@ -30,7 +41,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(wrt::kThreads)
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_closest_perray_kernel(const float* __restrict__ od, long long n,
                             const float* __restrict__ soa,
                             const float* __restrict__ box,
@@ -39,40 +50,63 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
                             const float* __restrict__ cp, int clip_on,
                             float* __restrict__ t_out, int* __restrict__ row_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
+  const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
+  wrt::Ray r{};
+  bool act = false;
+  if (i < n) {
+    r.dx = od[i];
+    r.dy = od[n + i];
+    r.dz = od[2 * n + i];
+    r.ox = od[3 * n + i];
+    r.oy = od[4 * n + i];
+    r.oz = od[5 * n + i];
+    r.tmin = od[6 * n + i];
+    act = od[7 * n + i] > 0.0f;
   }
-  wrt::Ray r;
-  r.dx = od[i];
-  r.dy = od[n + i];
-  r.dz = od[2 * n + i];
-  r.ox = od[3 * n + i];
-  r.oy = od[4 * n + i];
-  r.oz = od[5 * n + i];
-  r.tmin = od[6 * n + i];
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
 
-  float best = wrt::kBig;
-  int best_row = -1;
-  if (od[7 * n + i] > 0.0f) {
-    wrt::walk_front_to_back(
-        box, gbox, ng, k, r, [&] { return best; },
+  float t_own = wrt::kBig;
+  int row_own = -1;
+  unsigned todo = __ballot_sync(wrt::kFullMask, act);
+  while (todo != 0u) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const wrt::Ray b = wrt::shfl_ray(r, src);
+    float best = wrt::kBig;
+    int best_row = -1;
+    wrt::perray_walk(
+        box, gbox, ng, k, wrt::slab_ray(b), lane, [&] { return best; },
         [&](int c) {
           const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
-          const int ctype = ct[c];
-          for (int l = 0; l < wrt::kLanes; ++l) {
-            const float ts = wrt::prim_t(rows, l, ctype, r, clip);
-            const int row = c * wrt::kLanes + l;
-            if (ts > 0.0f && (ts < best || (ts == best && row < best_row))) {
-              best = ts;
-              best_row = row;
-            }
+          switch (ct[c]) {
+            case wrt::kSphere:
+              wrt::closest_sweep_perray<wrt::kSphere>(rows, c, lane, b, clip, best, best_row);
+              break;
+            case wrt::kCylinder:
+              wrt::closest_sweep_perray<wrt::kCylinder>(rows, c, lane, b, clip, best,
+                                                        best_row);
+              break;
+            case wrt::kTriangle:
+              wrt::closest_sweep_perray<wrt::kTriangle>(rows, c, lane, b, clip, best,
+                                                        best_row);
+              break;
+            case wrt::kMixed:
+              wrt::closest_sweep_perray<wrt::kMixed>(rows, c, lane, b, clip, best, best_row);
+              break;
+            default:
+              break;
           }
           return false;
         });
+    if (lane == src) {
+      t_own = best;
+      row_own = best < wrt::kBig ? best_row : -1;
+    }
   }
-  t_out[i] = best;
-  row_out[i] = best < wrt::kBig ? best_row : -1;
+  if (i < n) {
+    t_out[i] = t_own;
+    row_out[i] = row_own;
+  }
 }
 
 }  // namespace

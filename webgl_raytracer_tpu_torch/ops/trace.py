@@ -39,8 +39,11 @@ needed cluster for one ray at a time, each lane testing 4 of its 128
 primitives held in registers. trace_any and trace_closest_attrs run one
 thread per ray and stage a cluster's 12x128 rows in shared memory whenever
 a thread of the block needs them. The per-ray kernels
-(trace_closest_perray.cu, trace_any_perray.cu) read the rows from global
-memory (L2) instead: divergent rays of one block share few clusters.
+(trace_closest_perray.cu, trace_any_perray.cu) walk each ray's own
+clusters front to back instead, warp by warp: the warp takes its rays one
+at a time, each lane tests 4 cluster boxes of the ray's group, warp
+reductions pop the nearest entry, and the warp sweeps the popped cluster
+from global memory (L2), as above.
 The TPU's block worklists are schedule choices and are not carried over;
 the outputs do not depend on the visiting order (see the tie-break below).
 
