@@ -73,6 +73,16 @@ def any_scene(request, device):
     return _compile(request.param, device)
 
 
+@pytest.fixture(scope="module", params=["spheres400", "caffeine+tris", "spheres10k",
+                                        "spheres+cylinders+tris", "spheres20k"])
+def occlusion_scene(request, device):
+    """Scenes for trace_any and trace_any_perray: spheres10k (K = 128),
+    spheres+cylinders+tris (K = 124, three types) and spheres20k take
+    trace_any's ray-major schedule, the others its cluster-major one;
+    spheres20k is the per-ray kernel's two-level walk."""
+    return _compile(request.param, device)
+
+
 def _fan(n, seed, device, spread=0.05):
     rng = np.random.default_rng(seed)
     o = rng.normal(size=(3, n)).astype(np.float32) * 3
@@ -184,23 +194,51 @@ def test_frame_kernel_matches_plain(scene, device):
     assert float(images[0].mean()) > 0.0
 
 
+def _interval_edges(t):
+    """(accept_lo, t_max, window) per ray around t, its closest hit: ray i
+    takes window i mod 6 of (0, t+), (0, t), (0, t-), (t-, t+), (t, BIG),
+    (t+, BIG), where t+ and t- are the floats one ulp above and below t."""
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    down = torch.nextafter(t, torch.zeros_like(t))
+    zero, big = torch.zeros_like(t), torch.full_like(t, 1e20)
+    lo = torch.stack([zero, zero, zero, down, t, up])
+    hi = torch.stack([up, t, down, up, big, big])
+    window = torch.arange(t.shape[0], device=t.device) % 6
+    return lo.gather(0, window[None])[0], hi.gather(0, window[None])[0], window
+
+
 @BATCHES
+@pytest.mark.parametrize("rays", ["fan", "interval edges"])
 @pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
                          ids=["noclip", "clip"])
-def test_trace_any_kernels_match_plain(any_scene, device, clip, n):
-    """trace_any and trace_any_perray: kernel == plain == each other."""
+def test_trace_any_kernels_match_plain(occlusion_scene, device, clip, rays, n):
+    """trace_any and trace_any_perray: kernel == plain == each other. On
+    interval-edge rays each ray's (accept_lo, t_max) lies one ulp around or
+    at its closest hit t: a window that ends at or below t occludes no ray,
+    and one that holds t nearly every hit ray."""
     o3, d3s, acts, tmin = _fan(n, 19, device, spread=1.0)
     kw = dict(t_max=25.0, accept_min=torch.full_like(tmin, 0.01), clip=clip,
               active=acts[0])
+    if rays == "interval edges":
+        t, row = T.trace_closest(occlusion_scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+        lo, hi, window = _interval_edges(t)
+        kw.update(t_max=hi, accept_min=lo)
     before = dict(T.launches)
-    bk = T.trace_any(any_scene, o3, d3s[0], tmin, **kw)
-    pk = T.trace_any(any_scene, o3, d3s[0], tmin, perray=True, **kw)
+    bk = T.trace_any(occlusion_scene, o3, d3s[0], tmin, **kw)
+    pk = T.trace_any(occlusion_scene, o3, d3s[0], tmin, perray=True, **kw)
     assert T.launches["trace_any"] == before["trace_any"] + 1
     assert T.launches["trace_any_perray"] == before["trace_any_perray"] + 1
-    bp = T.trace_any(any_scene, o3, d3s[0], tmin, impl="plain", **kw)
-    pp = T.trace_any(any_scene, o3, d3s[0], tmin, perray=True, impl="plain", **kw)
+    bp = T.trace_any(occlusion_scene, o3, d3s[0], tmin, impl="plain", **kw)
+    pp = T.trace_any(occlusion_scene, o3, d3s[0], tmin, perray=True, impl="plain", **kw)
     assert int(bk.sum()) > n // 500
     assert torch.equal(bk, bp) and torch.equal(pk, pp) and torch.equal(bk, pk)
+    if rays == "interval edges":
+        hit = row >= 0
+        for w in (1, 2):
+            assert not bool((bk & hit & (window == w)).any())
+        for w in (0, 3):
+            inside = hit & (window == w)
+            assert int((bk & inside).sum()) >= 0.99 * int(inside.sum())
 
 
 @BATCHES
@@ -340,21 +378,24 @@ def test_sky_frame_kernel_matches_plain(device):
     assert float(images[0].mean()) > 0.0
 
 
+@BATCHES
 @pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
                          ids=["noclip", "clip"])
-def test_trace_closest_attrs_kernel_matches_plain_and_closest(scene, device, clip):
+def test_trace_closest_attrs_kernel_matches_plain_and_closest(trace_scene, device, clip, n):
     """The attrs kernel: t and all 32 columns bit for bit against its plain
-    version; t and the winning slot against the trace_closest kernel."""
-    o3, d3s, acts, tmin = _fan(1 << 16, 29, device)
+    version (miss rows, inactive lanes included: zeros with column 11 =
+    -1); t and the winning slot against the trace_closest kernel."""
+    o3, d3s, acts, tmin = _fan(n, 29, device)
     before = dict(T.launches)
-    tk, ak = T.trace_closest_attrs(scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+    tk, ak = T.trace_closest_attrs(trace_scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
     assert T.launches["trace_closest_attrs"] == before["trace_closest_attrs"] + 1
-    tp, ap = T.trace_closest_attrs(scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
+    tp, ap = T.trace_closest_attrs(trace_scene, o3, d3s[0], tmin, clip=clip, active=acts[0],
                                    impl="plain")
-    tc, rc = T.trace_closest(scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
+    tc, rc = T.trace_closest(trace_scene, o3, d3s[0], tmin, clip=clip, active=acts[0])
     assert T.launches["trace_closest_attrs"] == before["trace_closest_attrs"] + 1
     slot = T.attr_slot(ak)
-    assert int((slot >= 0).sum()) > 100
+    assert int((slot >= 0).sum()) > min(100, n // 50)
+    assert not bool((slot[~acts[0]] >= 0).any())
     assert torch.equal(tk.view(torch.int32), tp.view(torch.int32))
     assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
     assert torch.equal(tk.view(torch.int32), tc.view(torch.int32))

@@ -245,3 +245,80 @@ def test_finalize_hit_row_equals_gather(scenes):
     assert int((slot >= 0).sum()) > 50
     for f in ("t", "prim_type", "prim_local", "prim_slot", "extra"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _interval_edges(t):
+    """(accept_lo, t_max, window) per ray around t, its closest hit: ray i
+    takes window i mod 6 of (0, t+), (0, t), (0, t-), (t-, t+), (t, BIG),
+    (t+, BIG), where t+ and t- are the floats one ulp above and below t."""
+    up = torch.nextafter(t, torch.full_like(t, float("inf")))
+    down = torch.nextafter(t, torch.zeros_like(t))
+    zero, big = torch.zeros_like(t), torch.full_like(t, 1e20)
+    lo = torch.stack([zero, zero, zero, down, t, up])
+    hi = torch.stack([up, t, down, up, big, big])
+    window = torch.arange(t.shape[0]) % 6
+    return lo.gather(0, window[None])[0], hi.gather(0, window[None])[0], window
+
+
+@pytest.mark.parametrize("clip", [None, CLIP], ids=["noclip", "clip"])
+def test_any_plain_matches_pallas_on_interval_edges(scenes, clip):
+    """Occlusion windows one ulp around or at each hit ray's closest t (the
+    port's): any_plain and the per-ray walk against the Pallas
+    `_make_any_kernel` in interpret mode. The Pallas kernel's own t of the
+    same primitive can differ from the port's by a few ulps (XLA's CPU code
+    contracts FMAs; T_RTOL), which moves it across a one-ulp edge; so a ray
+    may differ only where the Pallas closest t lies on the other side of
+    its window than the port's, and there the Pallas bit is that side.
+    Windows that end at or below t occlude no ray; windows that hold t
+    occlude every ray."""
+    js, ps = scenes
+    o, ds, acts, tmin = _fan(1500, 37)
+    pt, pr = T.trace_closest(ps, _p3(o), _p3(ds[0]), torch.as_tensor(tmin), clip=clip)
+    keep = np.nonzero(pr.numpy() >= 0)[0]
+    o, d, tmin, t = o[:, keep], ds[0][:, keep], tmin[keep], pt[keep]
+    lo, hi, window = _interval_edges(t)
+    kw = dict(t_max=hi, accept_min=lo, clip=clip)
+    pb = T.trace_any(ps, _p3(o), _p3(d), torch.as_tensor(tmin), **kw)
+    assert torch.equal(pb, T.trace_any(ps, _p3(o), _p3(d), torch.as_tensor(tmin), perray=True,
+                                       **kw))
+    jb = np.asarray(PS.trace_any(js, _j3(o), _j3(d), jnp.asarray(tmin),
+                                 t_max=jnp.asarray(hi.numpy()),
+                                 accept_min=jnp.asarray(lo.numpy()), clip=_jclip(clip),
+                                 interpret=True))
+    jt = np.asarray(PS.trace_closest(js, _j3(o), _j3(d), jnp.asarray(tmin), clip=_jclip(clip),
+                                     interpret=True)[0])
+    pb, t, lo, hi, window = pb.numpy(), t.numpy(), lo.numpy(), hi.numpy(), window.numpy()
+    assert len(keep) > 50
+    for w in (1, 2):
+        assert not pb[window == w].any()
+    for w in (0, 3):
+        assert pb[window == w].all()
+    np.testing.assert_allclose(jt, t, rtol=T_RTOL)
+    inside, inside_j = (lo < t) & (t < hi), (lo < jt) & (jt < hi)
+    assert (inside != inside_j).any()
+    assert np.array_equal(jb, np.where(inside != inside_j, inside_j, pb))
+
+
+def test_trace_closest_attrs_ragged_miss_rows_match_pallas(scenes):
+    """A ragged batch (1,013 rays: 31 warps of 32 and one of 21) with
+    inactive lanes: the plain attrs version's rows against the Pallas attrs
+    kernel's in interpret mode, equal in value, and its miss rows (inactive
+    lanes included) +0.0 with column 11 = -1, bit for bit, with t = BIG on
+    both sides. The Pallas kernel's one-hot extraction leaves -0.0 in the
+    miss rows of active lanes, equal in value."""
+    js, ps = scenes
+    o, ds, acts, tmin = _fan(1013, 41)
+    act = acts[2]
+    jt, ja = PS.trace_closest_attrs(js, _j3(o), _j3(ds[0]), jnp.asarray(tmin),
+                                    active=jnp.asarray(act), interpret=True)
+    pt, pa = T.trace_closest_attrs(ps, _p3(o), _p3(ds[0]), torch.as_tensor(tmin),
+                                   active=torch.as_tensor(act))
+    jt, ja, pt, pa = np.asarray(jt), np.asarray(ja), pt.numpy(), pa.numpy()
+    miss = pa[:, 11] < 0
+    assert miss[~act].all() and (~act).sum() > 300
+    assert 20 < (~miss).sum() < act.sum()
+    miss_row = np.zeros(32, np.float32)
+    miss_row[11] = -1.0
+    assert (pa[miss].view(np.int32) == miss_row.view(np.int32)).all()
+    assert (pt[miss] == np.float32(1e20)).all() and (jt[miss] == np.float32(1e20)).all()
+    assert np.array_equal(ja, pa)

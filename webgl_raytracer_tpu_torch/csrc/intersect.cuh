@@ -1,9 +1,12 @@
 // Per-ray cluster tracing maths shared by the trace kernels
 // (trace_closest.cu, trace_closest_attrs.cu, trace_any3.cu, trace_any.cu,
-// trace_closest_perray.cu, trace_any_perray.cu), and the schedules they
-// share: the block walk (trace_closest_attrs.cu), the warp-cooperative
-// cluster sweeps (trace_closest.cu, trace_any3.cu and the per-ray kernels)
-// and the per-ray warp walk (trace_closest_perray.cu, trace_any_perray.cu).
+// trace_closest_perray.cu, trace_any_perray.cu), and the warp schedules
+// they share: the index-order closest-hit walk (closest_walk:
+// trace_closest.cu and trace_closest_attrs.cu), the ray-major occlusion
+// walk (any_raymajor: trace_any3.cu and trace_any.cu) and the per-ray
+// front-to-back walk (perray_walk: trace_closest_perray.cu,
+// trace_any_perray.cu). No trace kernel uses shared memory or a block
+// barrier: a warp owns 32 rays and its collectives are full-mask.
 //
 // Every expression here is the one in ops/wavefront.py (cluster_entry_t,
 // intersect_soa_t), written in the same operation order with float
@@ -17,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace wrt {
 
 constexpr float kBig = 1e20f;
@@ -24,8 +29,8 @@ constexpr int kLanes = 128;             // primitives per cluster
 constexpr int kRows = 12;               // SoA rows per cluster
 constexpr int kClusterFloats = kRows * kLanes;
 constexpr int kThreads = 128;           // rays per block
-// Blocks per SM the warp-cooperative kernels' register budget must allow:
-// at most 128 registers a thread, 16 resident warps.
+// Blocks per SM the trace kernels' register budget must allow: at most
+// 128 registers a thread, 16 resident warps.
 constexpr int kMinBlocks = 4;
 constexpr int kGroup = 128;             // clusters per group (per-ray walk)
 
@@ -53,6 +58,24 @@ __device__ __forceinline__ Clip load_clip(const float* cp, int clip_on) {
   c.off = cp[3];
   c.side = cp[4];
   return c;
+}
+
+// Ray i of an operand whose rows 0-7 are d xyz, centred o xyz, t_min and
+// activity (1/0); a lane past n gets a zero ray. Returns its activity.
+__device__ __forceinline__ bool load_ray(const float* __restrict__ od, long long n,
+                                         long long i, Ray& r) {
+  r = Ray{};
+  if (i >= n) {
+    return false;
+  }
+  r.dx = od[i];
+  r.dy = od[n + i];
+  r.dz = od[2 * n + i];
+  r.ox = od[3 * n + i];
+  r.oy = od[4 * n + i];
+  r.oz = od[5 * n + i];
+  r.tmin = od[6 * n + i];
+  return od[7 * n + i] > 0.0f;
 }
 
 // The terms of a ray's slab tests that no box changes: per axis the
@@ -99,32 +122,26 @@ __device__ __forceinline__ float slab_entry(const float* box, const SlabRay& s) 
   return (ok && tf >= tn0) ? tn0 : INFINITY;
 }
 
-__device__ __forceinline__ float slab_entry(const float* box, const Ray& r) {
-  return slab_entry(box, slab_ray(r));
-}
-
-// Sphere quadratic; -1 on a miss. kMissEarly returns as soon as the
-// discriminant says miss, with the same result: a warp whose lanes all
-// miss then skips the IEEE sqrtf sequence (35% of trace_closest's time
-// on the 1000-sphere 1080p primaries, PERF.md).
-template <bool kMissEarly = false>
-__device__ __forceinline__ float sphere_t(const Ray& r, float cx, float cy,
-                                          float cz, float ra) {
+// Sphere quadratic; -1 on a miss. It returns as soon as the discriminant
+// says miss, with the value the full sequence would give: a warp whose
+// lanes all miss then skips the IEEE sqrtf sequence (35% of
+// trace_closest's time on the 1000-sphere 1080p primaries, PERF.md).
+__device__ __forceinline__ float sphere_t(const Ray& r, float cx, float cy, float cz,
+                                          float ra) {
   const float sx = r.ox - cx;
   const float sy = r.oy - cy;
   const float sz = r.oz - cz;
   const float b = sx * r.dx + sy * r.dy + sz * r.dz;
   const float cterm = sx * sx + sy * sy + sz * sz - ra * ra;
   const float disc = b * b - cterm;
-  const bool ok = disc >= 0.0f;
-  if (kMissEarly && !ok) {
+  if (!(disc >= 0.0f)) {
     return -1.0f;
   }
-  const float sq = sqrtf(ok ? disc : 0.0f);
+  const float sq = sqrtf(disc);
   const float t0 = -b - sq;
   const float t1 = -b + sq;
   float ts = (t0 > r.tmin) ? t0 : t1;
-  return (ok && ts > r.tmin) ? ts : -1.0f;
+  return (ts > r.tmin) ? ts : -1.0f;
 }
 
 // Capped cylinder p1 -> p2; a degenerate one is a sphere at p1.
@@ -233,36 +250,38 @@ __device__ __forceinline__ float triangle_t(const Ray& r, const Clip& clip,
   return tt;
 }
 
-// Candidate t of lane j of a staged cluster (rows: [kRows][kLanes] in
-// shared memory); ctype >= 0 is the cluster's single type, < 0 reads
-// each lane's own type from row 11 (hand-built mixed clusters).
-__device__ __forceinline__ float prim_t(const float* rows, int j, int ctype,
-                                        const Ray& r, const Clip& clip) {
-  const int type = ctype >= 0 ? ctype : static_cast<int>(rows[11 * kLanes + j]);
-#define ROW(i) rows[(i) * kLanes + j]
-  if (type == kSphere) {
-    return sphere_t(r, ROW(0), ROW(1), ROW(2), ROW(3));
-  }
-  if (type == kCylinder) {
-    return cylinder_t(r, ROW(0), ROW(1), ROW(2), ROW(3), ROW(4), ROW(5), ROW(6));
-  }
-  if (type == kTriangle) {
-    return triangle_t(r, clip, ROW(0), ROW(1), ROW(2), ROW(4), ROW(5), ROW(6),
-                      ROW(8), ROW(9), ROW(10));
-  }
-#undef ROW
-  return -1.0f;
-}
-
 // ---------------------------------------------------------------------------
-// Warp-cooperative sweeps (trace_closest.cu, trace_any3.cu): a warp owns 32
-// rays, one per lane, and sweeps a cluster for one of them at a time, each
-// lane testing primitives lane, lane+32, lane+64, lane+96 of the cluster.
+// Warp-cooperative sweeps: a warp owns 32 rays, one per lane, and sweeps a
+// cluster for one of them at a time, each lane testing primitives lane,
+// lane+32, lane+64, lane+96 of the cluster.
 
 constexpr int kWarp = 32;
 constexpr int kSteps = kLanes / kWarp;    // primitives per lane and cluster
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMixed = -1;                // cluster type of a mixed cluster
+
+// Call f(std::integral_constant<int, T>) for the cluster type ct (kSphere,
+// kCylinder, kTriangle or kMixed), so that f compiles its sweep for that
+// type; any other value calls nothing.
+template <class F>
+__device__ __forceinline__ void by_type(int ct, F&& f) {
+  switch (ct) {
+    case kSphere:
+      f(std::integral_constant<int, kSphere>{});
+      break;
+    case kCylinder:
+      f(std::integral_constant<int, kCylinder>{});
+      break;
+    case kTriangle:
+      f(std::integral_constant<int, kTriangle>{});
+      break;
+    case kMixed:
+      f(std::integral_constant<int, kMixed>{});
+      break;
+    default:
+      break;
+  }
+}
 
 // Whether the primitive test of a cluster of this type reads SoA row i.
 __host__ __device__ constexpr bool uses_row(int type, int i) {
@@ -273,14 +292,13 @@ __host__ __device__ constexpr bool uses_row(int type, int i) {
 }
 
 // Candidate t of one primitive held in registers (p[i] = its row i), for a
-// cluster of type T (kMixed: each primitive's own type from row 11). The
-// same tests, in the same dispatch, as prim_t; the sphere test returns
-// early on a miss.
+// cluster of type T (kMixed: each primitive's own type from row 11; a
+// type that is none of the three never hits).
 template <int T>
 __device__ __forceinline__ float prim_t_regs(const float (&p)[kRows], const Ray& r,
                                              const Clip& clip) {
   if constexpr (T == kSphere) {
-    return sphere_t<true>(r, p[0], p[1], p[2], p[3]);
+    return sphere_t(r, p[0], p[1], p[2], p[3]);
   } else if constexpr (T == kCylinder) {
     return cylinder_t(r, p[0], p[1], p[2], p[3], p[4], p[5], p[6]);
   } else if constexpr (T == kTriangle) {
@@ -344,67 +362,89 @@ __device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
   return b;
 }
 
-// Copy cluster c's SoA rows into shared memory (all threads take part).
-__device__ __forceinline__ void stage_cluster(float* rows, const float* soa,
-                                              int c) {
-  const float* src = soa + static_cast<long long>(c) * kClusterFloats;
-  for (int e = threadIdx.x; e < kClusterFloats; e += blockDim.x) {
-    rows[e] = src[e];
+// ---------------------------------------------------------------------------
+// The closest-hit walk of trace_closest.cu and trace_closest_attrs.cu:
+// both kernels call closest_walk, so their t and winning row agree by
+// construction.
+
+// Sweep cluster c (type T, rows: its SoA block) for the warp's rays in
+// `need`; each such ray keeps the lexicographic (t, row) minimum over the
+// primitives with 0 < t < best where one exists. The cluster's primitives
+// are loaded into registers once for all the rays that need them; for each
+// ray, broadcast with its best t, every lane keeps the strict-< minimum
+// over its four primitives in increasing row, and two __reduce_min_sync
+// take the warp's (t, row) minimum (the lowest row among equal t).
+template <int T>
+__device__ __forceinline__ void closest_cluster(const float* __restrict__ rows, int c,
+                                                int lane, unsigned need, const Ray& r,
+                                                const Clip& clip, float& best,
+                                                int& best_row) {
+  float p[kSteps][kRows];
+  load_lane_prims<T>(p, rows, lane);
+  while (need != 0u) {
+    const int src = __ffs(need) - 1;
+    need &= need - 1u;
+    const Ray b = shfl_ray(r, src);
+    const float cap = __shfl_sync(kFullMask, best, src);
+    float t = INFINITY;
+    int j = kLanes;
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q) {
+      const float ts = prim_t_regs<T>(p[q], b, clip);
+      if (ts > 0.0f && ts < cap && ts < t) {
+        t = ts;
+        j = lane + kWarp * q;
+      }
+    }
+    // t > 0, so its bit pattern orders as its value does (INFINITY: no
+    // candidate).
+    unsigned tw, jw;
+    warp_min_pair(__float_as_uint(t), static_cast<unsigned>(j), tw, jw);
+    if (lane == src && __uint_as_float(tw) < best) {
+      best = __uint_as_float(tw);
+      best_row = c * kLanes + static_cast<int>(jw);
+    }
   }
 }
 
-// The block walk of trace_closest_attrs.cu for ray i
-// (one thread per ray; od f32[8,n]: d xyz, centred o xyz, t_min, active).
-// A ray that misses the root AABB (cp[8..13]) or is inactive is a miss.
-// Otherwise it walks the k clusters in index order and sweeps a cluster's
-// 128 primitives only when it enters the cluster's AABB before its current
-// best t; the block stages that cluster's rows in `rows` (shared memory,
-// kClusterFloats) whenever any of its threads needs them. The per-lane
-// update `ts > 0 && ts < best` in increasing row order yields the
-// lexicographic minimum of (t, row). Every thread of the block must call
-// it (it synchronises), i >= n included. Returns best t (kBig on a miss)
+// Closest hit of ray i (od f32[8,n], load_ray's layout), the warp's 32
+// rays together; every lane of the warp calls it, lanes past n included.
+// A ray that is inactive or misses the root AABB (cp[8..13]) is a miss.
+// The warp walks the clusters in index order; each lane asks whether its
+// ray enters the cluster's AABB before its best t, __ballot_sync gathers
+// the need mask, a cluster no lane needs costs one slab test, and a needed
+// one is swept by closest_cluster. So a ray takes the lexicographic
+// minimum of (t, row) over the primitives of each cluster it needs, in
+// index order: closest_plain's t and row. Returns best t (kBig on a miss)
 // and sets best_row (-1 on a miss).
-__device__ __forceinline__ float closest_block_walk(
-    float* rows, const float* __restrict__ od, long long n, long long i,
-    const float* __restrict__ soa, const float* __restrict__ box,
-    const int* __restrict__ ct, int k, const float* __restrict__ cp,
-    int clip_on, int& best_row) {
-  Ray r{};
-  bool act = false;
-  if (i < n) {
-    r.dx = od[i];
-    r.dy = od[n + i];
-    r.dz = od[2 * n + i];
-    r.ox = od[3 * n + i];
-    r.oy = od[4 * n + i];
-    r.oz = od[5 * n + i];
-    r.tmin = od[6 * n + i];
-    act = od[7 * n + i] > 0.0f;
-  }
+__device__ __forceinline__ float closest_walk(const float* __restrict__ od, long long n,
+                                              long long i, int lane,
+                                              const float* __restrict__ soa,
+                                              const float* __restrict__ box,
+                                              const int* __restrict__ ct, int k,
+                                              const float* __restrict__ cp, int clip_on,
+                                              int& best_row) {
+  Ray r;
+  bool act = load_ray(od, n, i, r);
+  const SlabRay sr = slab_ray(r);
   // Root gate: missing the scene box implies missing every cluster box.
-  act = act && slab_entry(cp + 8, r) < INFINITY;
+  act = act && slab_entry(cp + 8, sr) < INFINITY;
   const Clip clip = load_clip(cp, clip_on);
 
   float best = kBig;
   best_row = -1;
-  for (int c = 0; c < k; ++c) {
-    const bool need = act && slab_entry(box + 6 * c, r) < best;
-    if (!__syncthreads_or(need)) {
-      continue;
-    }
-    stage_cluster(rows, soa, c);
-    __syncthreads();
-    if (need) {
-      const int ctype = ct[c];
-      for (int j = 0; j < kLanes; ++j) {
-        const float ts = prim_t(rows, j, ctype, r, clip);
-        if (ts > 0.0f && ts < best) {
-          best = ts;
-          best_row = c * kLanes + j;
-        }
+  if (__any_sync(kFullMask, act)) {
+    for (int c = 0; c < k; ++c) {
+      const unsigned need =
+          __ballot_sync(kFullMask, act && slab_entry(box + 6 * c, sr) < best);
+      if (need == 0u) {
+        continue;
       }
+      const float* rows = soa + static_cast<long long>(c) * kClusterFloats;
+      by_type(ct[c], [&](auto type) {
+        closest_cluster<decltype(type)::value>(rows, c, lane, need, r, clip, best, best_row);
+      });
     }
-    __syncthreads();
   }
   if (!(best < kBig)) {
     best_row = -1;
@@ -413,9 +453,10 @@ __device__ __forceinline__ float closest_block_walk(
 }
 
 // ---------------------------------------------------------------------------
-// The warp sweeps of one broadcast ray (the per-ray kernels, and
-// trace_any3.cu's ray-major schedule): every lane calls them with the same
-// ray b, and each lane tests primitives lane, lane+32, lane+64, lane+96.
+// The warp sweeps of one broadcast ray (the per-ray kernels, and the
+// ray-major schedules of trace_any3.cu and trace_any.cu): every lane calls
+// them with the same ray b, and each lane tests primitives lane, lane+32,
+// lane+64, lane+96.
 
 // Whether a primitive of cluster rows (type T) is hit by b with
 // lo < t < hi, each lane loading its own primitive of each step: the sweep
@@ -436,12 +477,51 @@ __device__ __forceinline__ bool any_sweep(const float* __restrict__ rows, int la
   return false;
 }
 
+// any_sweep of cluster c, dispatched on its type ct[c].
+__device__ __forceinline__ bool any_sweep_cluster(const float* __restrict__ soa,
+                                                  const int* __restrict__ ct, int c,
+                                                  int lane, const Ray& b, float lo,
+                                                  float hi, const Clip& clip) {
+  const float* rows = soa + static_cast<long long>(c) * kClusterFloats;
+  bool hit = false;
+  by_type(ct[c], [&](auto type) {
+    hit = any_sweep<decltype(type)::value>(rows, lane, b, lo, hi, clip);
+  });
+  return hit;
+}
+
+// The ray-major occlusion walk: whether b is hit with lo < t < hi in a
+// cluster whose AABB it enters before box_cap. The lanes test 32 cluster
+// AABBs of b at once (its reciprocal direction computed once), and the
+// warp sweeps the clusters entered, in index order, until one occludes b.
+// At K = 128 that is about K/32 slab tests a lane and ray, where the
+// cluster-major schedules test every cluster box for every pending ray.
+__device__ __forceinline__ bool any_raymajor(const float* __restrict__ soa,
+                                             const float* __restrict__ box,
+                                             const int* __restrict__ ct, int k, int lane,
+                                             const Ray& b, float lo, float hi,
+                                             float box_cap, const Clip& clip) {
+  const SlabRay bs = slab_ray(b);
+  for (int c0 = 0; c0 < k; c0 += kWarp) {
+    const int c = c0 + lane;
+    unsigned cm = __ballot_sync(kFullMask, c < k && slab_entry(box + 6 * c, bs) < box_cap);
+    while (cm != 0u) {
+      const int cc = c0 + __ffs(cm) - 1;
+      cm &= cm - 1u;
+      if (any_sweep_cluster(soa, ct, cc, lane, b, lo, hi, clip)) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
 // Sweep cluster c (type T, rows: its SoA block) for b: (best, best_row),
 // the same on every lane, become the lexicographic (t, row) minimum of
 // themselves and the cluster's primitives with t > 0. A per-ray walk
 // visits clusters out of index order, so an equal t in a lower row found
 // later must still win: the lanes keep candidates with t <= best, and the
-// update is lexicographic (trace_closest.cu's `t < cap` and `t < best` are
+// update is lexicographic (closest_cluster's `t < cap` and `t < best` are
 // right only for visits in index order).
 template <int T>
 __device__ __forceinline__ void closest_sweep_perray(const float* __restrict__ rows, int c,

@@ -6,15 +6,31 @@
 // ops/trace.py (any_plain, trace_any).
 //
 // Bound on the H100: FP32 intersector arithmetic (the cluster table stays
-// in L2 and shared memory; the ray operand is read once).
+// in L1/L2; the ray operand is read once). A ray needs a slab test per
+// cluster and up to 128 primitive tests per cluster it enters before
+// t_max, fewer once a primitive occludes it. What loses time is the
+// schedule, as for trace_any3.cu.
 //
-// Design: trace_any3.cu with one direction and a t_max. One thread per
-// lane; a ray that misses the root AABB (or is inactive) is unoccluded.
-// For each cluster in index order, a still-unresolved ray whose entry into
-// the cluster's AABB is before t_max sweeps its 128 primitives with the
-// predicate accept_lo < ts < t_max and stops at the first hit. The block
-// stages a cluster's rows in shared memory when any of its threads needs
-// them and stops once every ray is resolved.
+// Design: trace_any3.cu's two warp schedules with one direction, a per-ray
+// t_max and a per-ray accept_lo; no block barriers, no shared memory. A
+// ray that is inactive or misses the root AABB is resolved as unoccluded.
+//  * cluster-major (k < kRayMajorClusters): the warp walks the clusters in
+//    index order while any of its rays is pending; __ballot_sync gathers
+//    the rays that enter the cluster's AABB before their t_max (each
+//    lane's reciprocal direction computed once), and a needed cluster's
+//    primitives are loaded into registers once (4 a lane, coalesced
+//    128-byte row loads) and swept for one needing ray at a time, its ray,
+//    accept_lo and t_max broadcast by __shfl_sync, 32 primitives a step
+//    with the predicate accept_lo < ts < t_max and __any_sync after each
+//    step, so an occluded ray stops after the step that holds its first
+//    hit;
+//  * ray-major (k >= kRayMajorClusters): the warp takes its pending rays
+//    one at a time through intersect.cuh any_raymajor (the lanes test 32
+//    cluster AABBs of the ray at once, and the warp sweeps the clusters it
+//    enters before t_max until one occludes it).
+// Occlusion is an order-free OR over (ray, primitive) predicates, so both
+// give any_plain's bits. Lanes past n stay in every collective and write
+// nothing.
 //
 // Operands: od f32[10,n] rows 0-2 d, 3-5 centred origin, 6 t_min,
 // 7 activity (1/0), 8 t_max, 9 accept_lo; soa, box, ct, cp as in
@@ -24,74 +40,148 @@
 
 namespace {
 
-__global__ void __launch_bounds__(wrt::kThreads)
+// Scenes of at least this many clusters take the ray-major schedule. On
+// the H100 (chip_smoke.py, each schedule forced on the sky-lit 1080p
+// bounce-0 env-NEE batches, kernel alone, PERF.md) the cluster-major one
+// took 0.043 ms against 0.054 at K = 12 (1000 spheres) and the ray-major
+// one 0.128 ms against 0.172 at K = 128 (10k spheres).
+constexpr int kRayMajorClusters = 64;
+
+// Lane i's ray, its slab terms, (accept_lo, t_max) and pending bit.
+struct AnyRay {
+  wrt::Ray r;
+  wrt::SlabRay sr;
+  float lo, hi;
+  bool pending;
+};
+
+__device__ __forceinline__ AnyRay load_any_ray(const float* __restrict__ od, long long n,
+                                               long long i, const float* __restrict__ cp) {
+  AnyRay a;
+  const bool act = wrt::load_ray(od, n, i, a.r);
+  a.sr = wrt::slab_ray(a.r);
+  a.hi = i < n ? od[8 * n + i] : 0.0f;
+  a.lo = i < n ? od[9 * n + i] : 0.0f;
+  // Root gate: missing the scene box resolves the ray as unoccluded.
+  a.pending = act && wrt::slab_entry(cp + 8, a.sr) < INFINITY;
+  return a;
+}
+
+// Cluster-major: sweep cluster rows (type T) for the warp's rays in need,
+// the lane's primitives in registers. Returns whether this lane's ray is
+// occluded there.
+template <int T>
+__device__ __forceinline__ bool any_cluster(const float* __restrict__ rows, int lane,
+                                            unsigned need, const AnyRay& a,
+                                            const wrt::Clip& clip) {
+  float p[wrt::kSteps][wrt::kRows];
+  wrt::load_lane_prims<T>(p, rows, lane);
+  bool found = false;
+  while (need != 0u) {
+    const int src = __ffs(need) - 1;
+    need &= need - 1u;
+    const wrt::Ray b = wrt::shfl_ray(a.r, src);
+    const float lo = __shfl_sync(wrt::kFullMask, a.lo, src);
+    const float hi = __shfl_sync(wrt::kFullMask, a.hi, src);
+    bool hit = false;
+#pragma unroll
+    for (int q = 0; q < wrt::kSteps; ++q) {
+      const float ts = wrt::prim_t_regs<T>(p[q], b, clip);
+      if (__any_sync(wrt::kFullMask, ts > lo && ts < hi)) {
+        hit = true;
+        break;
+      }
+    }
+    found = found || (hit && lane == src);
+  }
+  return found;
+}
+
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any_kernel(const float* __restrict__ od, long long n,
                  const float* __restrict__ soa,
                  const float* __restrict__ box,
                  const int* __restrict__ ct, int k,
                  const float* __restrict__ cp, int clip_on,
                  int* __restrict__ found_out) {
-  __shared__ float rows[wrt::kClusterFloats];
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool in_range = i < n;
-
-  wrt::Ray r{};
-  bool pending = false;
-  float hi = 0.0f;
-  float lo = 0.0f;
-  if (in_range) {
-    r.dx = od[i];
-    r.dy = od[n + i];
-    r.dz = od[2 * n + i];
-    r.ox = od[3 * n + i];
-    r.oy = od[4 * n + i];
-    r.oz = od[5 * n + i];
-    r.tmin = od[6 * n + i];
-    hi = od[8 * n + i];
-    lo = od[9 * n + i];
-    // Root gate: missing the scene box resolves the ray as unoccluded.
-    pending = od[7 * n + i] > 0.0f && wrt::slab_entry(cp + 8, r) < INFINITY;
-  }
+  const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
+  AnyRay a = load_any_ray(od, n, i, cp);
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
   bool found = false;
 
   for (int c = 0; c < k; ++c) {
-    if (!__syncthreads_or(pending)) {
+    if (!__any_sync(wrt::kFullMask, a.pending)) {
       break;
     }
-    const bool need = pending && wrt::slab_entry(box + 6 * c, r) < hi;
-    if (!__syncthreads_or(need)) {
+    const unsigned need =
+        __ballot_sync(wrt::kFullMask, a.pending && wrt::slab_entry(box + 6 * c, a.sr) < a.hi);
+    if (need == 0u) {
       continue;
     }
-    wrt::stage_cluster(rows, soa, c);
-    __syncthreads();
-    if (need) {
-      const int ctype = ct[c];
-      for (int l = 0; l < wrt::kLanes; ++l) {
-        const float ts = wrt::prim_t(rows, l, ctype, r, clip);
-        if (ts > lo && ts < hi) {
-          found = true;
-          pending = false;
-          break;
-        }
-      }
-    }
-    __syncthreads();
+    const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
+    bool hit = false;
+    wrt::by_type(ct[c], [&](auto type) {
+      hit = any_cluster<decltype(type)::value>(rows, lane, need, a, clip);
+    });
+    found = found || hit;
+    a.pending = a.pending && !found;
   }
-  if (in_range) {
+  if (i < n) {
+    found_out[i] = found ? 1 : 0;
+  }
+}
+
+// Ray-major: the warp walks each pending ray's clusters with
+// intersect.cuh's any_raymajor until one occludes it.
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
+trace_any_raymajor_kernel(const float* __restrict__ od, long long n,
+                          const float* __restrict__ soa,
+                          const float* __restrict__ box,
+                          const int* __restrict__ ct, int k,
+                          const float* __restrict__ cp, int clip_on,
+                          int* __restrict__ found_out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
+  const AnyRay a = load_any_ray(od, n, i, cp);
+  const wrt::Clip clip = wrt::load_clip(cp, clip_on);
+  bool found = false;
+
+  unsigned m = __ballot_sync(wrt::kFullMask, a.pending);
+  while (m != 0u) {
+    const int src = __ffs(m) - 1;
+    m &= m - 1u;
+    const wrt::Ray b = wrt::shfl_ray(a.r, src);
+    const float lo = __shfl_sync(wrt::kFullMask, a.lo, src);
+    const float hi = __shfl_sync(wrt::kFullMask, a.hi, src);
+    const bool hit = wrt::any_raymajor(soa, box, ct, k, lane, b, lo, hi, hi, clip);
+    found = found || (hit && lane == src);
+  }
+  if (i < n) {
     found_out[i] = found ? 1 : 0;
   }
 }
 
 }  // namespace
 
+// Either schedule, forced: ray_major 1 or 0. wrt_trace_any picks by k;
+// chip_smoke.py times both on the same operands.
+extern "C" int wrt_trace_any_schedule(const float* od, long long n, const float* soa,
+                                      const float* box, const int* ct, int k,
+                                      const float* cp, int clip_on, int* found_out,
+                                      int ray_major, void* stream) {
+  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
+  const auto kernel = ray_major ? trace_any_raymajor_kernel : trace_any_kernel;
+  kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(od, n, soa, box, ct, k, cp, clip_on,
+                                                 found_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int wrt_trace_any(const float* od, long long n, const float* soa,
                              const float* box, const int* ct, int k,
                              const float* cp, int clip_on, int* found_out,
                              void* stream) {
-  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
-  trace_any_kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      od, n, soa, box, ct, k, cp, clip_on, found_out);
-  return static_cast<int>(cudaGetLastError());
+  return wrt_trace_any_schedule(od, n, soa, box, ct, k, cp, clip_on, found_out,
+                                k >= kRayMajorClusters ? 1 : 0, stream);
 }

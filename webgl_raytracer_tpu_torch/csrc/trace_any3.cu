@@ -152,22 +152,9 @@ trace_any3_kernel(const float* __restrict__ od, long long n,
       continue;
     }
     const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
-    switch (ct[c]) {
-      case wrt::kSphere:
-        any3_cluster<wrt::kSphere>(rows, lane, need, f, clip, found);
-        break;
-      case wrt::kCylinder:
-        any3_cluster<wrt::kCylinder>(rows, lane, need, f, clip, found);
-        break;
-      case wrt::kTriangle:
-        any3_cluster<wrt::kTriangle>(rows, lane, need, f, clip, found);
-        break;
-      case wrt::kMixed:
-        any3_cluster<wrt::kMixed>(rows, lane, need, f, clip, found);
-        break;
-      default:
-        break;
-    }
+    wrt::by_type(ct[c], [&](auto type) {
+      any3_cluster<decltype(type)::value>(rows, lane, need, f, clip, found);
+    });
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       f.pending[j] = f.pending[j] && !found[j];
@@ -178,8 +165,9 @@ trace_any3_kernel(const float* __restrict__ od, long long n,
   }
 }
 
-// Ray-major: the warp sweeps each cluster its broadcast ray enters with
-// intersect.cuh's any_sweep (t_max 1e20) until one occludes it.
+// Ray-major: the warp walks each pending (lane, direction) pair's clusters
+// with intersect.cuh's any_raymajor (t_max 1e20, every entered cluster)
+// until one occludes it.
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any3_raymajor_kernel(const float* __restrict__ od, long long n,
                            const float* __restrict__ soa,
@@ -200,35 +188,9 @@ trace_any3_raymajor_kernel(const float* __restrict__ od, long long n,
       const int src = __ffs(m) - 1;
       m &= m - 1u;
       const wrt::Ray b = wrt::shfl_ray(f.r[j], src);
-      const wrt::SlabRay bs = wrt::slab_ray(b);
       const float lo = __shfl_sync(wrt::kFullMask, f.lo, src);
-      bool hit = false;
-      for (int c0 = 0; c0 < k && !hit; c0 += wrt::kWarp) {
-        const int c = c0 + lane;
-        unsigned cm = __ballot_sync(wrt::kFullMask,
-                                    c < k && wrt::slab_entry(box + 6 * c, bs) < INFINITY);
-        while (cm != 0u && !hit) {
-          const int cc = c0 + __ffs(cm) - 1;
-          cm &= cm - 1u;
-          const float* rows = soa + static_cast<long long>(cc) * wrt::kClusterFloats;
-          switch (ct[cc]) {
-            case wrt::kSphere:
-              hit = wrt::any_sweep<wrt::kSphere>(rows, lane, b, lo, wrt::kBig, clip);
-              break;
-            case wrt::kCylinder:
-              hit = wrt::any_sweep<wrt::kCylinder>(rows, lane, b, lo, wrt::kBig, clip);
-              break;
-            case wrt::kTriangle:
-              hit = wrt::any_sweep<wrt::kTriangle>(rows, lane, b, lo, wrt::kBig, clip);
-              break;
-            case wrt::kMixed:
-              hit = wrt::any_sweep<wrt::kMixed>(rows, lane, b, lo, wrt::kBig, clip);
-              break;
-            default:
-              break;
-          }
-        }
-      }
+      const bool hit = wrt::any_raymajor(soa, box, ct, k, lane, b, lo, wrt::kBig, INFINITY,
+                                         clip);
       found[j] = found[j] || (hit && lane == src);
     }
   }

@@ -35,22 +35,10 @@ trace_any_perray_kernel(const float* __restrict__ od, long long n,
                         int* __restrict__ found_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
-  wrt::Ray r{};
-  bool act = false;
-  float hi = 0.0f;
-  float lo = 0.0f;
-  if (i < n) {
-    r.dx = od[i];
-    r.dy = od[n + i];
-    r.dz = od[2 * n + i];
-    r.ox = od[3 * n + i];
-    r.oy = od[4 * n + i];
-    r.oz = od[5 * n + i];
-    r.tmin = od[6 * n + i];
-    act = od[7 * n + i] > 0.0f;
-    hi = od[8 * n + i];
-    lo = od[9 * n + i];
-  }
+  wrt::Ray r;
+  const bool act = wrt::load_ray(od, n, i, r);
+  const float hi = i < n ? od[8 * n + i] : 0.0f;
+  const float lo = i < n ? od[9 * n + i] : 0.0f;
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
 
   bool found = false;
@@ -65,23 +53,7 @@ trace_any_perray_kernel(const float* __restrict__ od, long long n,
     wrt::perray_walk(
         box, gbox, ng, k, wrt::slab_ray(b), lane, [&] { return hb; },
         [&](int c) {
-          const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
-          switch (ct[c]) {
-            case wrt::kSphere:
-              hit = wrt::any_sweep<wrt::kSphere>(rows, lane, b, lb, hb, clip);
-              break;
-            case wrt::kCylinder:
-              hit = wrt::any_sweep<wrt::kCylinder>(rows, lane, b, lb, hb, clip);
-              break;
-            case wrt::kTriangle:
-              hit = wrt::any_sweep<wrt::kTriangle>(rows, lane, b, lb, hb, clip);
-              break;
-            case wrt::kMixed:
-              hit = wrt::any_sweep<wrt::kMixed>(rows, lane, b, lb, hb, clip);
-              break;
-            default:
-              break;
-          }
+          hit = wrt::any_sweep_cluster(soa, ct, c, lane, b, lb, hb, clip);
           return hit;
         });
     found = found || (hit && lane == src);

@@ -16,24 +16,18 @@
 // its warp waits, two block barriers per cluster) runs 128 serial tests
 // per warp and cluster even where one lane of 32 needs the cluster.
 //
-// Design: no block barriers and no shared memory. A warp owns 32 rays
-// and walks the clusters in index order. Each lane asks whether its ray
-// enters the cluster's AABB before its best t (the ray's reciprocal
-// direction computed once, not per box); __ballot_sync gathers the warp's
-// need mask, and a cluster no lane needs costs one slab test. Where any
-// bit is set, the lanes load primitives lane, lane+32, lane+64, lane+96
-// of the cluster into registers once (coalesced 128-byte row loads
-// through the read-only path) and sweep them for one needing ray at a
-// time, its ray and best t broadcast by __shfl_sync: each lane keeps the
-// strict-< minimum over its four primitives in increasing row, two
-// __reduce_min_sync take the warp's lexicographic (t, row) minimum (the
-// lowest row among equal t), and the ray's own lane keeps it where it is
-// below its best t. So a ray takes the lexicographic minimum of (t, row)
-// over the primitives of each cluster it needs, in index order, which is
-// what closest_plain takes: t and row are identical to it (and to the
-// block walk of trace_closest_attrs.cu). The primitive tests are
-// intersect.cuh's, built -fmad=false; the sphere test returns early on a
-// miss, so a step whose 32 primitives all miss skips the square root.
+// Design: no block barriers and no shared memory; the walk is
+// intersect.cuh closest_walk, which trace_closest_attrs.cu shares. A warp
+// owns 32 rays and walks the clusters in index order: __ballot_sync
+// gathers which of its rays enter a cluster's AABB before their best t (a
+// ray's reciprocal direction computed once, not per box), so a cluster no
+// lane needs costs one slab test; a needed cluster's primitives are loaded
+// into registers once, 4 a lane by coalesced 128-byte row loads, and swept
+// for one needing ray at a time, two __reduce_min_sync taking the warp's
+// lexicographic (t, row) minimum. A ray so takes the minimum closest_plain
+// takes: t and row are identical to it. The primitive tests are built
+// -fmad=false; the sphere test returns early on a miss, so a step whose 32
+// primitives all miss skips the square root.
 //
 // Operands (all device pointers, contiguous):
 //   od   f32[8,n]  rows: d xyz, centred o xyz, t_min, active (1/0)
@@ -47,42 +41,6 @@
 
 namespace {
 
-// Sweep cluster c (type T, rows: its SoA block) for the warp's rays in
-// `need`; each such ray keeps the lexicographic (t, row) minimum over the
-// primitives with 0 < t < best where one exists.
-template <int T>
-__device__ __forceinline__ void closest_cluster(const float* __restrict__ rows, int c,
-                                                int lane, unsigned need,
-                                                const wrt::Ray& r, const wrt::Clip& clip,
-                                                float& best, int& best_row) {
-  float p[wrt::kSteps][wrt::kRows];
-  wrt::load_lane_prims<T>(p, rows, lane);
-  while (need != 0u) {
-    const int src = __ffs(need) - 1;
-    need &= need - 1u;
-    const wrt::Ray b = wrt::shfl_ray(r, src);
-    const float cap = __shfl_sync(wrt::kFullMask, best, src);
-    float t = INFINITY;
-    int j = wrt::kLanes;
-#pragma unroll
-    for (int q = 0; q < wrt::kSteps; ++q) {
-      const float ts = wrt::prim_t_regs<T>(p[q], b, clip);
-      if (ts > 0.0f && ts < cap && ts < t) {
-        t = ts;
-        j = lane + wrt::kWarp * q;
-      }
-    }
-    // The warp's lexicographic (t, row) minimum: t > 0, so its bit
-    // pattern orders as its value does (INFINITY: no candidate).
-    unsigned tw, jw;
-    wrt::warp_min_pair(__float_as_uint(t), static_cast<unsigned>(j), tw, jw);
-    if (lane == src && __uint_as_float(tw) < best) {
-      best = __uint_as_float(tw);
-      best_row = c * wrt::kLanes + static_cast<int>(jw);
-    }
-  }
-}
-
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_closest_kernel(const float* __restrict__ od, long long n,
                      const float* __restrict__ soa,
@@ -92,54 +50,9 @@ trace_closest_kernel(const float* __restrict__ od, long long n,
                      float* __restrict__ t_out, int* __restrict__ row_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
-  wrt::Ray r{};
-  bool act = false;
-  if (i < n) {
-    r.dx = od[i];
-    r.dy = od[n + i];
-    r.dz = od[2 * n + i];
-    r.ox = od[3 * n + i];
-    r.oy = od[4 * n + i];
-    r.oz = od[5 * n + i];
-    r.tmin = od[6 * n + i];
-    act = od[7 * n + i] > 0.0f;
-  }
-  const wrt::SlabRay sr = wrt::slab_ray(r);
-  // Root gate: missing the scene box implies missing every cluster box.
-  act = act && wrt::slab_entry(cp + 8, sr) < INFINITY;
-  const wrt::Clip clip = wrt::load_clip(cp, clip_on);
-
-  float best = wrt::kBig;
-  int best_row = -1;
-  if (__any_sync(wrt::kFullMask, act)) {
-    for (int c = 0; c < k; ++c) {
-      const unsigned need = __ballot_sync(
-          wrt::kFullMask, act && wrt::slab_entry(box + 6 * c, sr) < best);
-      if (need == 0u) {
-        continue;
-      }
-      const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
-      switch (ct[c]) {
-        case wrt::kSphere:
-          closest_cluster<wrt::kSphere>(rows, c, lane, need, r, clip, best, best_row);
-          break;
-        case wrt::kCylinder:
-          closest_cluster<wrt::kCylinder>(rows, c, lane, need, r, clip, best, best_row);
-          break;
-        case wrt::kTriangle:
-          closest_cluster<wrt::kTriangle>(rows, c, lane, need, r, clip, best, best_row);
-          break;
-        case wrt::kMixed:
-          closest_cluster<wrt::kMixed>(rows, c, lane, need, r, clip, best, best_row);
-          break;
-        default:
-          break;
-      }
-    }
-  }
-  if (!(best < wrt::kBig)) {
-    best_row = -1;
-  }
+  int best_row;
+  const float best = wrt::closest_walk(od, n, i, lane, soa, box, ct, k, cp, clip_on,
+                                       best_row);
   if (i < n) {
     t_out[i] = best;
     row_out[i] = best_row;

@@ -5,34 +5,38 @@
 // ops/trace.py (closest_attrs_plain, trace_closest_attrs).
 //
 // What bounds it on the H100: the walk's FP32 intersector arithmetic, as
-// for trace_closest.cu; the attribute rows add 128 B written per ray and
+// for trace_closest.cu, and the attribute rows: 128 B written per ray and
 // at most 128 B read per hit ray from a table (K*128 rows of 128 B: 1.5 MB
-// at K = 12, 16 MB at K = 128) that stays in the 50 MB L2.
+// at K = 12, 16 MB at K = 128) that stays in the 50 MB L2. On the
+// 1000-sphere 1080p primaries the 265 MB of rows written bound it.
 //
-// Design: the block walk (wrt::closest_block_walk, one thread a ray,
-// clusters staged in shared memory). It takes the same lexicographic
-// (t, row) minimum in index order as trace_closest.cu's warp walk, so t
-// and the winning row are bit for bit the ones trace_closest returns
-// (chip_smoke.py holds the two kernels to each other). After it, each hit lane copies its winner's row from the table with
-// eight 16-byte loads and stores; a miss lane writes the miss row. The TPU
-// kernel extracted the row with a one-hot [block,128]x[128,32] matrix
-// product after every cluster sweep because its vector unit has no
-// per-lane load; a thread here loads its own row once, after the walk.
+// Design: trace_closest.cu's warp walk (intersect.cuh closest_walk), so t
+// and the winning row are trace_closest's by construction. Then the warp
+// writes its 32 rays' rows, which lie contiguous in attr_out (4 KB), 512
+// bytes a store: at step s lane l stores 16-byte vector (l mod 8) of the
+// row of ray (l / 8) + 4 s, that ray's winning row broadcast by
+// __shfl_sync and read from the table through the read-only path (8 lanes
+// a 128-byte row), or the miss row. The TPU kernel extracted the row with
+// a one-hot [block,128]x[128,32] matrix product after every cluster sweep
+// because its vector unit has no per-lane load; here the row is loaded
+// once, after the walk.
 //
 // Operands (all device pointers, contiguous): od, soa, box, ct, cp as in
 // trace_closest.cu; tab f32[k*128,32] (ops/trace.attr_operand: cluster row
-// in global coordinates, shading attributes, slot as f32), 16-byte aligned.
-// Outputs: t f32[n] (1e20 on a miss); attrs f32[n,32], the winner's table
-// row, or zeros with column 11 = -1 on a miss (inactive lanes included).
+// in global coordinates, shading attributes, slot as f32) and attr_out,
+// both 16-byte aligned (the wrapper checks). Outputs: t f32[n] (1e20 on a
+// miss); attrs f32[n,32], the winner's table row, or zeros with column
+// 11 = -1 on a miss (inactive lanes included).
 
 #include "intersect.cuh"
 
 namespace {
 
 constexpr int kAttrCols = 32;
-constexpr int kAttrVecs = kAttrCols / 4;
+constexpr int kAttrVecs = kAttrCols / 4;          // float4 a row
+constexpr int kRowsPerStore = wrt::kWarp / kAttrVecs;
 
-__global__ void __launch_bounds__(wrt::kThreads)
+__global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_closest_attrs_kernel(const float* __restrict__ od, long long n,
                            const float* __restrict__ soa,
                            const float* __restrict__ box,
@@ -41,30 +45,29 @@ trace_closest_attrs_kernel(const float* __restrict__ od, long long n,
                            const float* __restrict__ tab,
                            float* __restrict__ t_out,
                            float* __restrict__ attr_out) {
-  __shared__ float rows[wrt::kClusterFloats];
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   int best_row;
-  const float best = wrt::closest_block_walk(rows, od, n, i, soa, box, ct, k, cp,
-                                             clip_on, best_row);
-  if (i >= n) {
-    return;
+  const float best = wrt::closest_walk(od, n, i, lane, soa, box, ct, k, cp, clip_on,
+                                       best_row);
+  if (i < n) {
+    t_out[i] = best;
   }
-  t_out[i] = best;
-  float4* dst = reinterpret_cast<float4*>(attr_out + i * kAttrCols);
-  if (best_row >= 0) {
-    const float4* src = reinterpret_cast<const float4*>(
-        tab + static_cast<long long>(best_row) * kAttrCols);
+  const long long i0 = i - lane;
+  const int v = lane % kAttrVecs;
+  const float4* src = reinterpret_cast<const float4*>(tab);
+  float4* dst = reinterpret_cast<float4*>(attr_out);
+  // Vector 2 of the miss row holds columns 8-11: column 11 = -1.
+  const float4 miss = make_float4(0.0f, 0.0f, 0.0f, v == 2 ? -1.0f : 0.0f);
 #pragma unroll
-    for (int q = 0; q < kAttrVecs; ++q) {
-      dst[q] = src[q];
+  for (int s = 0; s < kAttrVecs; ++s) {
+    const int owner = lane / kAttrVecs + kRowsPerStore * s;
+    const int row = __shfl_sync(wrt::kFullMask, best_row, owner);
+    const long long ray = i0 + owner;
+    if (ray < n) {
+      dst[ray * kAttrVecs + v] =
+          row >= 0 ? __ldg(src + static_cast<long long>(row) * kAttrVecs + v) : miss;
     }
-  } else {
-    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int q = 0; q < kAttrVecs; ++q) {
-      dst[q] = zero;
-    }
-    dst[2] = make_float4(0.0f, 0.0f, 0.0f, -1.0f);   // column 11: type -1
   }
 }
 

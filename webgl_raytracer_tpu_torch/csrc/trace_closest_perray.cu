@@ -51,18 +51,8 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
                             float* __restrict__ t_out, int* __restrict__ row_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
-  wrt::Ray r{};
-  bool act = false;
-  if (i < n) {
-    r.dx = od[i];
-    r.dy = od[n + i];
-    r.dz = od[2 * n + i];
-    r.ox = od[3 * n + i];
-    r.oy = od[4 * n + i];
-    r.oz = od[5 * n + i];
-    r.tmin = od[6 * n + i];
-    act = od[7 * n + i] > 0.0f;
-  }
+  wrt::Ray r;
+  const bool act = wrt::load_ray(od, n, i, r);
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
 
   float t_own = wrt::kBig;
@@ -78,24 +68,10 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
         box, gbox, ng, k, wrt::slab_ray(b), lane, [&] { return best; },
         [&](int c) {
           const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
-          switch (ct[c]) {
-            case wrt::kSphere:
-              wrt::closest_sweep_perray<wrt::kSphere>(rows, c, lane, b, clip, best, best_row);
-              break;
-            case wrt::kCylinder:
-              wrt::closest_sweep_perray<wrt::kCylinder>(rows, c, lane, b, clip, best,
-                                                        best_row);
-              break;
-            case wrt::kTriangle:
-              wrt::closest_sweep_perray<wrt::kTriangle>(rows, c, lane, b, clip, best,
-                                                        best_row);
-              break;
-            case wrt::kMixed:
-              wrt::closest_sweep_perray<wrt::kMixed>(rows, c, lane, b, clip, best, best_row);
-              break;
-            default:
-              break;
-          }
+          wrt::by_type(ct[c], [&](auto type) {
+            wrt::closest_sweep_perray<decltype(type)::value>(rows, c, lane, b, clip, best,
+                                                             best_row);
+          });
           return false;
         });
     if (lane == src) {

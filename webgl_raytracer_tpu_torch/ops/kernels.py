@@ -124,6 +124,9 @@ def library() -> ctypes.CDLL:
     lib.wrt_trace_any.restype = i32
     lib.wrt_trace_any.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
                                   ptr, ptr]
+    lib.wrt_trace_any_schedule.restype = i32
+    lib.wrt_trace_any_schedule.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                           ptr, i32, ptr]
     lib.wrt_trace_closest_perray.restype = i32
     lib.wrt_trace_closest_perray.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr,
                                              i32, ptr, i32, ptr, ptr, ptr]

@@ -33,17 +33,19 @@ What bounds them on the H100: per-ray FP32 intersector arithmetic. At the
 kernels (csrc/trace_closest.cu, trace_any3.cu, trace_any.cu,
 trace_closest_attrs.cu) take a root-AABB gate, then walk the clusters in
 index order, skipping each cluster whose AABB the ray misses or enters at
-or beyond its current best t (or t_max). trace_closest and trace_any3 do
-it warp by warp: the warp's need mask is a ballot, and the lanes sweep a
-needed cluster for one ray at a time, each lane testing 4 of its 128
-primitives held in registers. trace_any and trace_closest_attrs run one
-thread per ray and stage a cluster's 12x128 rows in shared memory whenever
-a thread of the block needs them. The per-ray kernels
-(trace_closest_perray.cu, trace_any_perray.cu) walk each ray's own
-clusters front to back instead, warp by warp: the warp takes its rays one
-at a time, each lane tests 4 cluster boxes of the ray's group, warp
-reductions pop the nearest entry, and the warp sweeps the popped cluster
-from global memory (L2), as above.
+or beyond its current best t (or t_max), warp by warp: the warp's need
+mask is a ballot, and the lanes sweep a needed cluster for one ray at a
+time, each lane testing 4 of its 128 primitives held in registers.
+trace_closest and trace_closest_attrs share that walk (intersect.cuh
+closest_walk); the attrs kernel then copies the winners' rows, 512
+contiguous bytes a warp store. From 64 clusters the occlusion kernels
+trace_any3 and trace_any take the ray-major schedule instead: the warp
+takes its pending rays one at a time and tests 32 cluster boxes a step.
+The per-ray kernels (trace_closest_perray.cu, trace_any_perray.cu) walk
+each ray's own clusters front to back, warp by warp: the warp takes its
+rays one at a time, each lane tests 4 cluster boxes of the ray's group,
+warp reductions pop the nearest entry, and the warp sweeps the popped
+cluster from global memory (L2), as above.
 The TPU's block worklists are schedule choices and are not carried over;
 the outputs do not depend on the visiting order (see the tie-break below).
 

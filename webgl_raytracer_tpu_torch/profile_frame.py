@@ -2,11 +2,12 @@
 
     python -m webgl_raytracer_tpu_torch.profile_frame
 
-For each of two scenes — the 1000-sphere main path (default settings,
-ambient light) and the 10k-sphere scene under the default analytic sky
-(1024x512, env_intensity 0.4) — and each of two transports — the binned
-one that 1080p frames take by default, and the whole batch (WRT_CHUNKS=1)
-for comparison — renders at 1920x1080 one warm frame, TIMED_FRAMES frames
+For each of three frames — the 1000-sphere main path (default settings,
+ambient light), the same scene under the default analytic sky (1024x512,
+env_intensity 0.4; the frame whose env NEE takes trace_any) and the
+10k-sphere scene under that sky (the per-ray kernels) — and each of two
+transports — the binned one that 1080p frames take by default, and the
+whole batch (WRT_CHUNKS=1) for comparison — renders at 1920x1080 one warm frame, TIMED_FRAMES frames
 timed one by one, then one frame under torch.profiler, and prints one
 JSON line: the timed frames' wall milliseconds (mean and each), the
 profiled frame's, its device busy time (sum of kernel times), the idle
@@ -28,8 +29,9 @@ WIDTH, HEIGHT = 1920, 1080
 TOP_KERNELS = 12
 TIMED_FRAMES = 5
 TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any3_raymajor_kernel",
-                 "trace_any_kernel", "trace_closest_perray_kernel",
-                 "trace_any_perray_kernel", "trace_closest_attrs_kernel")
+                 "trace_any_kernel", "trace_any_raymajor_kernel",
+                 "trace_closest_perray_kernel", "trace_any_perray_kernel",
+                 "trace_closest_attrs_kernel")
 TRANSPORTS = (("binned", {}), ("whole batch", {"WRT_CHUNKS": "1"}))
 
 
@@ -112,12 +114,18 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(nvsmi, flush=True)
     sky = EnvironmentController(device=device).load_analytic_sky()
-    main_path = Renderer(compile_scene(random_sphere_geometry(1000), device=device),
-                         width=WIDTH, height=HEIGHT, device=device)
-    lit = Renderer(compile_scene(random_sphere_geometry(10000), device=device),
-                   env=sky, width=WIDTH, height=HEIGHT, device=device)
-    lit.settings.env_intensity = 0.4
-    for name, r in (("spheres1000", main_path), ("spheres10k analytic sky", lit)):
+    spheres1000 = compile_scene(random_sphere_geometry(1000), device=device)
+
+    def lit(scene):
+        r = Renderer(scene, env=sky, width=WIDTH, height=HEIGHT, device=device)
+        r.settings.env_intensity = 0.4
+        return r
+
+    frames = (("spheres1000", Renderer(spheres1000, width=WIDTH, height=HEIGHT, device=device)),
+              ("spheres1000 analytic sky", lit(spheres1000)),
+              ("spheres10k analytic sky",
+               lit(compile_scene(random_sphere_geometry(10000), device=device))))
+    for name, r in frames:
         for transport, knobs in TRANSPORTS:
             print(json.dumps(profile_scene(name, r, transport, knobs)), flush=True)
     return 0
