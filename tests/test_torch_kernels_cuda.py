@@ -402,18 +402,29 @@ def test_trace_closest_attrs_kernel_matches_plain_and_closest(trace_scene, devic
     assert torch.equal(slot, rc)
 
 
+@pytest.mark.parametrize("iters", [0, 1, 7, 13, 16])
+@pytest.mark.parametrize("rows", [1, 31, 1000, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_sweep_sol_kernel_matches_plain(device, dtype):
+def test_sweep_sol_kernel_matches_plain(device, dtype, rows, iters):
     """The probe: f32 bit for bit; bf16 within chip_smoke.py's stated
-    tolerance (at most 1% of rows differ, each within 2^-6 relative)."""
+    tolerance (at most 1% of rows differ, each within 2^-6 relative). Rows
+    that fill no whole row group and iters off the 8-sweep centre cycle
+    take the kernel's ragged edge and its remainder sweeps; 0 iters leaves
+    1e20 on every row."""
     from webgl_raytracer_tpu_torch.tools import sweep_sol as SW
 
     a, s = SW.probe_inputs(device)
+    a = a[:rows].contiguous()
     before = SW.launches["sweep_sol"]
-    k = SW.sweep_sol(a, s, 16, dtype)
+    k = SW.sweep_sol(a, s, iters, dtype)
     assert SW.launches["sweep_sol"] == before + 1
-    p = SW.sweep_sol(a, s, 16, dtype, impl="plain")
-    assert int((p < 1e19).sum()) > 512
+    p = SW.sweep_sol(a, s, iters, dtype, impl="plain")
+    assert k.shape == (rows,)
+    if iters == 0:
+        no_hit = torch.tensor(1e20, dtype=dtype).float().item()
+        assert bool((p == no_hit).all())
+    elif rows == 1024 and iters == 16:
+        assert int((p < 1e19).sum()) > 512
     if dtype == torch.float32:
         assert torch.equal(k.view(torch.int32), p.view(torch.int32))
     else:

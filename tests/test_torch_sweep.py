@@ -22,7 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from tools.vpu_sol import B, C, make_kernel
 from webgl_raytracer_tpu_torch.tools import sweep_sol as SW
 
-ITERS = [3, 16]
+ITERS = [1, 3, 13, 16]   # 1 and 13: sweeps off the 8-sweep centre cycle
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
 
 
@@ -78,6 +78,19 @@ def test_plain_matches_kernel_body_exactly(iters, jdt, tdt, monkeypatch):
     want = _eager_kernel(iters, jdt, a.numpy(), s.numpy(), monkeypatch)
     assert (got < 1e19).sum() > B // 2
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])
+def test_zero_iters_gives_no_hit_on_every_row(jdt, tdt, monkeypatch):
+    """No sweep: every row keeps the initial 1e20 (rounded to the compute
+    type), in the plain version and in the kernel body."""
+    a, s = SW.probe_inputs("cpu")
+    got = SW.sweep_plain(a, s, 0, tdt).numpy()
+    want = _eager_kernel(0, jdt, a.numpy(), s.numpy(), monkeypatch)
+    no_hit = np.float32(torch.tensor(1e20, dtype=tdt).float())
+    assert got.shape == (B,)
+    assert np.array_equal(got.view(np.uint32), np.full(B, no_hit).view(np.uint32))
+    assert np.array_equal(want.view(np.uint32), got.view(np.uint32))
 
 
 @pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])

@@ -7,10 +7,14 @@ Counterpart of tools/vpu_sol.py. The kernel (csrc/sweep_sol.cu) runs
 `iters` sphere-test sweeps over a [1024, 128] block, each sweep the ~24
 arithmetic, compare and select operations of the traces' sphere test
 (one sqrt included) per element, keeping a running minimum, in f32 and in
-bf16. The tool prints, for each type, the milliseconds of one launch (CUDA
-events, best of REPS after a warm launch), nanoseconds per sweep and the
-effective rate, 24 x 1024 x 128 operations per sweep, beside the card's
-name and power limit. ITERS defaults to 32768.
+bf16. A thread holds its column's centres in registers and two rows,
+sharing the column's work of a sweep between them, and four threads split
+those elements' sweeps; a miss keeps the f32 sqrt off its slow path; bf16
+runs packed, two columns a thread in __nv_bfloat162 operations. The tool
+prints, for each type, the milliseconds of one launch (CUDA events, best
+of REPS after a warm launch), nanoseconds per sweep and the effective
+rate, 24 x 1024 x 128 operations per sweep, beside the card's name and
+power limit. ITERS defaults to 32768.
 
 sweep_sol is the kernel's wrapper, sweep_plain its plain PyTorch version
 (the same loop as tensor operations, rounding each operation in the
