@@ -11,6 +11,7 @@ occlusion bits and t must agree bit for bit.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -455,3 +456,49 @@ def test_chunked_frame_equals_whole_batch(device, knobs, monkeypatch):
     if knobs:
         assert out["chunked"][3]["trace_closest_attrs"] > 0
         assert out["chunked"][3]["trace_closest"] == 0
+
+
+@pytest.mark.parametrize("name", ["caffeine+tris", "tstp cartoon"])
+@pytest.mark.parametrize("clip_on", [False, True], ids=["no clip", "clip"])
+def test_oracle_card_trace_matches_numpy_trace(device, name, clip_on):
+    """The reference oracle's card trace (render/reference_oracle.py) gives
+    its numpy trace's closest rows, t (bit for bit) and occlusion bits on
+    the card: rays aimed at primitives, 20% masked."""
+    from webgl_raytracer_tpu_torch.app.pipeline import load_molecule_scene
+    from webgl_raytracer_tpu_torch.models import parse_auto_detect
+    from webgl_raytracer_tpu_torch.render import reference_oracle as O
+
+    if name == "tstp cartoon":
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "assets", "proteins", "TSTP.pdb")
+        with open(path, encoding="utf-8") as f:
+            mol = parse_auto_detect(f.read(), "TSTP.pdb")
+        scene = load_molecule_scene(mol, display_style="cartoon", device=device).scene
+    else:
+        scene = _compile(name, device)
+    prims = scene.cluster_prims.reshape(-1, 12).cpu().numpy()
+    points = prims[prims[:, 11] >= 0, 0:3]
+    clip = ((np.array([0.0, 0.0, 1.0], np.float32), float(np.median(points[:, 2])), 1.0)
+            if clip_on else None)
+    rng = np.random.default_rng(9)
+    n = 4096
+    mid, ext = points.mean(0), float(np.abs(points.max(0) - points.min(0)).max())
+    o = mid + (rng.random((n, 3)) - 0.5) * ext * 1.5
+    d = points[rng.integers(0, points.shape[0], n)] + rng.normal(0, 0.3, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o3 = tuple(o[:, i].astype(np.float32) for i in range(3))
+    d3 = tuple(d[:, i].astype(np.float32) for i in range(3))
+    mask = rng.random(n) < 0.8
+    lo = np.full(n, 0.01, np.float32)
+    hi = np.where(np.arange(n) % 2 == 0, O.BIG, np.float32(5.0)).astype(np.float32)
+    host = O._NpScene(scene)
+    card = O._NpScene(scene, device)
+    with np.errstate(over="ignore", invalid="ignore"):
+        t_np, row_np = O.trace_closest(host, o3, d3, 1e-4, clip, mask)
+        any_np = O.trace_any(host, o3, d3, 1e-4, clip, lo, hi, mask)
+    t_c, row_c = O.trace_closest(card, o3, d3, 1e-4, clip, mask)
+    any_c = O.trace_any(card, o3, d3, 1e-4, clip, lo, hi, mask)
+    assert int((row_np >= 0).sum()) >= 400
+    assert np.array_equal(row_c, row_np)
+    assert t_c.tobytes() == t_np.tobytes()
+    assert np.array_equal(any_c, any_np)

@@ -1,9 +1,10 @@
-"""Element display tables (CPK colours and van der Waals radii) and the
-bond defaults of the ball-and-stick style.
+"""Element tables: CPK colours, van der Waals radii, covalent radii (for
+distance-based bond inference) and the bond defaults of the ball-and-stick
+style.
 
-The port's own copy of what it uses from webgl_raytracer_tpu/models/
-elements.py; the values are the same published ones (Jmol CPK colours,
-Bondi radii).
+The port's own copy of webgl_raytracer_tpu/models/elements.py; the values
+are the same published ones (Jmol CPK colours, Bondi van der Waals radii,
+Cordero covalent radii).
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ ELEMENT_RADII: dict[str, float] = {
 }
 DEFAULT_RADIUS: float = 1.70
 
+COVALENT_RADII: dict[str, float] = {
+    "H": 0.31, "C": 0.76, "N": 0.71, "O": 0.66, "S": 1.05, "P": 1.07,
+    "F": 0.57, "Cl": 1.02, "Br": 1.20, "I": 1.39, "Fe": 1.32, "Zn": 1.22,
+    "Ca": 1.76, "Mg": 1.41, "Na": 1.66, "K": 2.03,
+}
+DEFAULT_COVALENT_RADIUS: float = 0.80
+
 BOND_RADIUS: float = 0.15
 BOND_COLOR: tuple[float, float, float] = (0.9, 0.9, 0.9)
 
@@ -52,4 +60,10 @@ def element_colors_array(elements: list[str]) -> np.ndarray:
 def element_radii_array(elements: list[str]) -> np.ndarray:
     """Van der Waals radius lookup -> f32[N]."""
     return np.array([ELEMENT_RADII.get(e, DEFAULT_RADIUS) for e in elements],
+                    dtype=np.float32)
+
+
+def covalent_radii_array(elements: list[str]) -> np.ndarray:
+    """Covalent radius lookup -> f32[N]."""
+    return np.array([COVALENT_RADII.get(e, DEFAULT_COVALENT_RADIUS) for e in elements],
                     dtype=np.float32)

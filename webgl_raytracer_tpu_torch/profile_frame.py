@@ -2,10 +2,12 @@
 
     python -m webgl_raytracer_tpu_torch.profile_frame
 
-For each of three frames — the 1000-sphere main path (default settings,
+For each of four frames — the 1000-sphere main path (default settings,
 ambient light), the same scene under the default analytic sky (1024x512,
-env_intensity 0.4; the frame whose env NEE takes trace_any) and the
-10k-sphere scene under that sky (the per-ray kernels) — and each of two
+env_intensity 0.4; the frame whose env NEE takes trace_any), the
+10k-sphere scene under that sky (the per-ray kernels) and the TSTP protein
+cartoon (assets/proteins/TSTP.pdb through app/pipeline, ambient light;
+triangles, spheres and cylinders, so the block kernels) — and each of two
 transports — the binned one that 1080p frames take by default, and the
 whole batch (WRT_CHUNKS=1) for comparison — renders at 1920x1080 one warm frame, TIMED_FRAMES frames
 timed one by one, then one frame under torch.profiler, and prints one
@@ -26,6 +28,8 @@ import subprocess
 import time
 
 WIDTH, HEIGHT = 1920, 1080
+PROTEIN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "assets", "proteins", "TSTP.pdb")
 TOP_KERNELS = 12
 TIMED_FRAMES = 5
 TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any3_raymajor_kernel",
@@ -102,7 +106,9 @@ def _profile(name, r, transport) -> dict:
 def main() -> int:
     import torch
 
+    from .app.pipeline import load_molecule_scene
     from .env import EnvironmentController
+    from .models import parse_auto_detect
     from .render import Renderer
     from .scene import compile_scene, random_sphere_geometry
 
@@ -115,6 +121,9 @@ def main() -> int:
     print(nvsmi, flush=True)
     sky = EnvironmentController(device=device).load_analytic_sky()
     spheres1000 = compile_scene(random_sphere_geometry(1000), device=device)
+    with open(PROTEIN, encoding="utf-8") as f:
+        tstp = load_molecule_scene(parse_auto_detect(f.read(), "TSTP.pdb"),
+                                   display_style="cartoon", device=device).scene
 
     def lit(scene):
         r = Renderer(scene, env=sky, width=WIDTH, height=HEIGHT, device=device)
@@ -124,7 +133,8 @@ def main() -> int:
     frames = (("spheres1000", Renderer(spheres1000, width=WIDTH, height=HEIGHT, device=device)),
               ("spheres1000 analytic sky", lit(spheres1000)),
               ("spheres10k analytic sky",
-               lit(compile_scene(random_sphere_geometry(10000), device=device))))
+               lit(compile_scene(random_sphere_geometry(10000), device=device))),
+              ("tstp cartoon", Renderer(tstp, width=WIDTH, height=HEIGHT, device=device)))
     for name, r in frames:
         for transport, knobs in TRANSPORTS:
             print(json.dumps(profile_scene(name, r, transport, knobs)), flush=True)
