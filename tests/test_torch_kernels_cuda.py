@@ -502,3 +502,138 @@ def test_oracle_card_trace_matches_numpy_trace(device, name, clip_on):
     assert np.array_equal(row_c, row_np)
     assert t_c.tobytes() == t_np.tobytes()
     assert np.array_equal(any_c, any_np)
+
+
+# The frame loop on the card (render/frame.py): one frame captured as a
+# CUDA graph and replayed.
+
+GRAPH_TRANSPORTS = {"whole batch": {"WRT_CHUNKS": "1"}, "binned": {"WRT_CHUNKS": "4"},
+                    "binned over its cap": {"WRT_CHUNKS": "4", "WRT_BIN_CAP_DIV": "64"},
+                    "permuted": {"WRT_CHUNKS": "4", "WRT_BINNED": "0"},
+                    "attrs": {"WRT_CHUNKS": "4", "WRT_ATTRS": "1"}}
+
+
+def _set_knobs(monkeypatch, knobs):
+    for k in ("WRT_CHUNKS", "WRT_BINNED", "WRT_BIN_CAP_DIV", "WRT_ATTRS"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+
+
+def _eager_frames(r, frames):
+    """frames of r through render_batch_stats and the running mean written
+    out: (accumulator, path rays, occlusion rays)."""
+    from webgl_raytracer_tpu_torch.render.integrator import render_batch_stats
+
+    flags, u, px, py = r.frame_inputs()
+    acc, paths, occl = None, 0, 0
+    for f in range(frames):
+        color, (p, o) = render_batch_stats(r.scene, flags, u, px, py, f, env=r.env)
+        acc = color if f == 0 else (acc * float(f) + color) / torch.tensor(
+            f + 1.0, device=color.device)
+        paths, occl = paths + int(p), occl + int(o)
+    return acc, paths, occl
+
+
+@pytest.mark.parametrize("transport", list(GRAPH_TRANSPORTS))
+def test_capture_makes_no_host_sync(device, transport, monkeypatch):
+    """The warm-up frame and the capture run under
+    torch.cuda.set_sync_debug_mode("error"): no host sync on any
+    transport's frame."""
+    from webgl_raytracer_tpu_torch.ops.kernels import library
+
+    _set_knobs(monkeypatch, GRAPH_TRANSPORTS[transport])
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    r = Renderer(scene, width=256, height=256, device=device)
+    flags = r._frame_setup()
+    scene.trace_operands, library()           # built once, outside the frame
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r._captured(flags)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert r.stats["captures"] == 1
+
+
+@pytest.mark.parametrize("transport", ["whole batch", "binned", "binned over its cap"])
+def test_graph_frames_equal_eager_frames(device, transport, monkeypatch):
+    """Two blocks (one frame, two frames) of graph replays at 256x256 equal
+    three eager frames bit for bit, ray counts included; the kernels'
+    launch counts grow by the replays; over its cap each block is redone
+    through the permuted transport."""
+    _set_knobs(monkeypatch, GRAPH_TRANSPORTS[transport])
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    r = Renderer(scene, width=256, height=256, device=device)
+    r.render_frames(1)
+    before = dict(T.launches)
+    r.render_frames(2)
+    assert T.launches["trace_closest"] > before["trace_closest"]
+    assert T.launches["trace_any3"] > before["trace_any3"]
+    acc, paths, occl = _eager_frames(r, 3)
+    assert torch.equal(r._accum, acc)
+    assert r.ray_counts == (paths, occl)
+    over = transport == "binned over its cap"
+    assert r.stats == {"captures": 1, "overflowed_blocks": 2 if over else 0,
+                       "redone_frames": 3 if over else 0}
+
+
+@pytest.mark.parametrize("name", ["spheres400", "caffeine+tris", "spheres10k"])
+def test_kernels_on_inactive_batches_miss(device, name):
+    """Every kernel on a batch with no active lane: t BIG, row -1, the miss
+    attribute row, no occlusion."""
+    scene = _compile(name, device)
+    o3, d3s, _, tmin = _fan(4096, 3, device)
+    off = torch.zeros(4096, dtype=torch.bool, device=device)
+    big = torch.full((4096,), float(np.float32(1e20)), device=device)
+    for perray in (False, True):
+        t, row = T.trace_closest(scene, o3, d3s[0], tmin, active=off, perray=perray)
+        assert torch.equal(t, big) and bool((row == -1).all())
+        assert not bool(T.trace_any(scene, o3, d3s[0], tmin, active=off,
+                                    perray=perray).any())
+    t, attrs = T.trace_closest_attrs(scene, o3, d3s[0], tmin, active=off)
+    miss = torch.zeros((4096, 32), device=device)
+    miss[:, T.ATTR_MISS_COL] = -1.0
+    assert torch.equal(t, big) and torch.equal(attrs, miss)
+    occ = T.trace_any3(scene, o3, d3s, tmin, actives=(off, off, off))
+    assert not any(bool(x.any()) for x in occ)
+
+
+def test_camera_change_refreshes_uniforms_without_recapture(device, monkeypatch):
+    """A camera move between blocks reaches the captured frame through the
+    uniform buffer: no recapture, and the frames equal eager frames of
+    the moved camera."""
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "4"})
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    r = Renderer(scene, width=256, height=256, device=device)
+    r.render_frames(2)
+    r.camera.rotation = np.array([0.0, np.sin(0.2), 0.0, np.cos(0.2)])
+    r.camera.distance *= 0.9
+    r.reset_accumulation()
+    r.render_frames(2)
+    assert r.stats["captures"] == 1
+    acc, paths, occl = _eager_frames(r, 2)
+    assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl)
+
+
+def test_flag_or_knob_change_recaptures(device, monkeypatch):
+    """A change of the static flags or of a transport knob recaptures (one
+    graph held at a time), and each block equals its eager frames."""
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "4"})
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    r = Renderer(scene, width=256, height=256, device=device)
+    steps = (("max_bounces", 2), ("knob", "1"), ("max_bounces", 4), ("same", None))
+    captures = 1
+    r.render_frames(1)
+    for what, value in steps:
+        if what == "max_bounces":
+            r.settings.max_bounces = value
+            captures += 1
+        elif what == "knob":
+            monkeypatch.setenv("WRT_CHUNKS", value)
+            captures += 1
+        r.reset_accumulation()
+        r.render_frames(2)
+        assert r.stats["captures"] == captures, (what, value)
+        acc, paths, occl = _eager_frames(r, 2)
+        assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl), (what, value)

@@ -196,8 +196,8 @@ def clip_operand(clip, ops: TraceOperands):
     else:
         normal, offset, side = clip
         normal = torch.as_tensor(normal, dtype=torch.float32, device=device).reshape(3)
-        offset = torch.as_tensor(offset, dtype=torch.float32, device=device)
-        side = torch.as_tensor(side, dtype=torch.float32, device=device)
+        offset = _f32(offset, device)
+        side = _f32(side, device)
         mid = ops.mid
         off_c = offset - (normal[0] * mid[0] + normal[1] * mid[1]
                           + normal[2] * mid[2])
@@ -225,8 +225,17 @@ def _use_kernel(x: torch.Tensor, impl) -> bool:
     return False
 
 
+def _f32(x, device) -> torch.Tensor:
+    """x as an f32 tensor on `device`: a tensor is converted, a number
+    becomes a fill, so that no host value is copied to the card (which a
+    captured frame cannot do)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def _f32_row(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
+    return _f32(x, device).expand(n)
 
 
 # ---------------------------------------------------------------------------

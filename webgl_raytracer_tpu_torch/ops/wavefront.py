@@ -300,8 +300,11 @@ def _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row, cost,
 
 
 def _broadcast_t_min(t_min, like):
-    return torch.as_tensor(t_min, dtype=torch.float32,
-                           device=like.device).expand(like.shape)
+    """t_min as f32 in like's shape: a tensor converted, a number filled
+    (no host value copied to the card)."""
+    if isinstance(t_min, torch.Tensor):
+        return t_min.to(device=like.device, dtype=torch.float32).expand(like.shape)
+    return torch.full(like.shape, t_min, dtype=torch.float32, device=like.device)
 
 
 def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,

@@ -112,6 +112,9 @@ def bin_key(o3, d3, lo, inv_extent):
 def expand_cols(cols, live: torch.Tensor):
     """1..4 [cap] columns in compact (live-first, order-preserving) order
     -> [n] columns in lane order: the k-th live lane reads compact row k,
-    dead lanes read 0."""
-    pos = torch.clamp_min(torch.cumsum(live.to(torch.int64), 0) - 1, 0)
+    dead lanes read 0. Live lanes past the cap (a frame that overflowed
+    the buffer, whose result is discarded) read the last row, so that no
+    read leaves the buffer."""
+    last = cols[0].shape[0] - 1
+    pos = torch.clamp(torch.cumsum(live.to(torch.int64), 0) - 1, 0, last)
     return tuple(torch.where(live, c[pos], 0.0) for c in cols)

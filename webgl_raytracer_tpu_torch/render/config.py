@@ -4,7 +4,10 @@
 splits into
   * StaticFlags — hashable structural switches that select code paths
     (material mode, feature toggles, bounce/spp counts), read on the host;
-  * Uniforms    — per-frame scalars/vectors as f32 tensors on the device.
+  * Uniforms    — per-frame scalars/vectors as f32 tensors on the device,
+    views of one flat f32 buffer (UNIFORM_SHAPES gives its layout), so
+    that a frame's uniforms reach the card in one copy, and a Renderer
+    refreshes its captured frame's uniforms in place.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ def default_lights() -> list[LightSettings]:
 @dataclass
 class RenderSettings:
     """Full render state, with the JAX package's defaults."""
+    render_scale: float = 1.0
     use_bvh: bool = True
     use_imported_color: bool = True
     base_color: tuple[float, float, float] = (0.8, 0.8, 0.8)
@@ -83,6 +87,10 @@ class RenderSettings:
     lights: list[LightSettings] = field(default_factory=default_lights)
     clip_enabled: bool = False
     clip_distance: float = 0.0
+    clip_locked: bool = False
+    clip_locked_normal: tuple | None = None
+    clip_locked_offset: float | None = None
+    clip_locked_side: float | None = None
     vis_mode: int = 0               # 0 render, 1 normals, 2 cost, 3 depth
     tracer: str = "wavefront"
 
@@ -150,6 +158,25 @@ class Uniforms:
     resolution: torch.Tensor        # f32[2] (width, height)
 
 
+# Shape of each Uniforms field, in the order of the flat buffer.
+UNIFORM_SHAPES = {f.name: () for f in fields(Uniforms)}
+UNIFORM_SHAPES.update(
+    base_color=(3,), ambient_color=(3,), light_dir=(3, 3), light_color=(3, 3),
+    light_intensity=(3,), light_angle=(3,), clip_normal=(3,), volume_color=(3,),
+    cam_origin=(3,), cam_forward=(3,), cam_right=(3,), cam_up=(3,), resolution=(2,))
+UNIFORM_SIZE = sum(math.prod(shape) for shape in UNIFORM_SHAPES.values())
+
+
+def uniforms_view(flat: torch.Tensor) -> Uniforms:
+    """Uniforms whose fields are views of `flat` (f32[UNIFORM_SIZE])."""
+    out, at = {}, 0
+    for name, shape in UNIFORM_SHAPES.items():
+        size = math.prod(shape)
+        out[name] = flat[at:at + size].view(shape)
+        at += size
+    return Uniforms(**out)
+
+
 def uniforms_from_numpy(fields_: dict, device=None) -> Uniforms:
     """Uniforms from the JAX package's Uniforms fields (arrays converted
     with numpy) — carries identical per-frame values into the port.
@@ -161,16 +188,11 @@ def uniforms_from_numpy(fields_: dict, device=None) -> Uniforms:
         for f in fields(Uniforms)})
 
 
-def split_settings(settings: RenderSettings, camera_basis, light_dirs,
-                   has_env: bool = False, has_volume: bool = False,
-                   clip=None, device=None) -> tuple[StaticFlags, Uniforms]:
-    """(static flags, uniforms on `device`, None meaning cuda:0) for one
-    frame. has_env sets use_env (env miss radiance and env NEE).
-
-    light_dirs: f32[3,3] world-space light directions for this camera.
-    clip: optional (normal, offset, side)."""
+def static_flags(settings: RenderSettings, has_env: bool = False,
+                 has_volume: bool = False, clip=None) -> StaticFlags:
+    """The code-path switches of `settings` (see split_settings)."""
     s = settings
-    flags = StaticFlags(
+    return StaticFlags(
         material_mode=(MATERIAL_MODES[s.material_mode]
                        if isinstance(s.material_mode, str) else int(s.material_mode)),
         use_imported_color=bool(s.use_imported_color),
@@ -191,55 +213,68 @@ def split_settings(settings: RenderSettings, camera_basis, light_dirs,
         use_bvh=bool(s.use_bvh),
     )
 
+
+def uniform_values(settings: RenderSettings, camera_basis, light_dirs,
+                   clip=None) -> np.ndarray:
+    """The uniforms of one frame as the flat f32[UNIFORM_SIZE] host array
+    that uniforms_view reads (see split_settings)."""
+    s = settings
     if clip is None:
         clip_normal, clip_offset, clip_side = np.array([0.0, 0.0, 1.0]), 0.0, 1.0
     else:
         clip_normal, clip_offset, clip_side = clip
-
-    device = resolve_device(device)
-
-    def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
-    uniforms = Uniforms(
-        base_color=f32(s.base_color),
-        metallic=f32(s.metallic),
-        roughness=f32(s.roughness),
-        rim_boost=f32(s.rim_boost),
-        matte_specular=f32(s.matte_specular),
-        matte_roughness=f32(s.matte_roughness),
-        matte_diffuse_roughness=f32(s.matte_diffuse_roughness),
-        wrap_diffuse=f32(s.wrap_diffuse),
-        surface_ior=f32(s.surface_ior),
-        surface_transmission=f32(s.surface_transmission),
-        surface_opacity=f32(s.surface_opacity),
-        exposure=f32(s.exposure),
-        dof_aperture=f32(s.dof_aperture),
-        dof_focus_distance=f32(s.dof_focus_distance),
-        ambient_intensity=f32(s.ambient_intensity),
-        ambient_color=f32(s.ambient_color),
-        env_intensity=f32(s.env_intensity),
-        env_max_luminance=f32(s.env_max_luminance),
-        ray_bias=f32(s.ray_bias),
-        t_min=f32(s.t_min),
-        light_dir=f32(np.asarray(light_dirs, np.float32).reshape(3, 3)),
-        light_color=f32(np.stack([np.asarray(lt.color, np.float32)
-                                  for lt in s.lights[:3]])),
-        light_intensity=f32([lt.intensity for lt in s.lights[:3]]),
-        light_angle=f32([float(np.clip(math.radians(lt.angle), 0.001, math.pi))
-                         for lt in s.lights[:3]]),
-        clip_normal=f32(clip_normal),
-        clip_offset=f32(clip_offset),
-        clip_side=f32(clip_side),
-        volume_color=f32(s.volume_color),
-        volume_density=f32(s.volume_density),
-        volume_opacity=f32(s.volume_opacity),
-        volume_step=f32(s.volume_step),
-        volume_threshold=f32(s.volume_threshold),
-        cam_origin=f32(camera_basis.origin),
-        cam_forward=f32(camera_basis.forward),
-        cam_right=f32(camera_basis.right),
-        cam_up=f32(camera_basis.up),
-        resolution=f32([camera_basis.width, camera_basis.height]),
+    values = dict(
+        base_color=s.base_color,
+        metallic=s.metallic,
+        roughness=s.roughness,
+        rim_boost=s.rim_boost,
+        matte_specular=s.matte_specular,
+        matte_roughness=s.matte_roughness,
+        matte_diffuse_roughness=s.matte_diffuse_roughness,
+        wrap_diffuse=s.wrap_diffuse,
+        surface_ior=s.surface_ior,
+        surface_transmission=s.surface_transmission,
+        surface_opacity=s.surface_opacity,
+        exposure=s.exposure,
+        dof_aperture=s.dof_aperture,
+        dof_focus_distance=s.dof_focus_distance,
+        ambient_intensity=s.ambient_intensity,
+        ambient_color=s.ambient_color,
+        env_intensity=s.env_intensity,
+        env_max_luminance=s.env_max_luminance,
+        ray_bias=s.ray_bias,
+        t_min=s.t_min,
+        light_dir=light_dirs,
+        light_color=[lt.color for lt in s.lights[:3]],
+        light_intensity=[lt.intensity for lt in s.lights[:3]],
+        light_angle=[float(np.clip(math.radians(lt.angle), 0.001, math.pi))
+                     for lt in s.lights[:3]],
+        clip_normal=clip_normal,
+        clip_offset=clip_offset,
+        clip_side=clip_side,
+        volume_color=s.volume_color,
+        volume_density=s.volume_density,
+        volume_opacity=s.volume_opacity,
+        volume_step=s.volume_step,
+        volume_threshold=s.volume_threshold,
+        cam_origin=camera_basis.origin,
+        cam_forward=camera_basis.forward,
+        cam_right=camera_basis.right,
+        cam_up=camera_basis.up,
+        resolution=[camera_basis.width, camera_basis.height],
     )
-    return flags, uniforms
+    return np.concatenate([np.asarray(values[name], np.float32).reshape(-1)
+                           for name in UNIFORM_SHAPES])
+
+
+def split_settings(settings: RenderSettings, camera_basis, light_dirs,
+                   has_env: bool = False, has_volume: bool = False,
+                   clip=None, device=None) -> tuple[StaticFlags, Uniforms]:
+    """(static flags, uniforms on `device`, None meaning cuda:0) for one
+    frame. has_env sets use_env (env miss radiance and env NEE).
+
+    light_dirs: f32[3,3] world-space light directions for this camera.
+    clip: optional (normal, offset, side)."""
+    flat = uniform_values(settings, camera_basis, light_dirs, clip)
+    return (static_flags(settings, has_env, has_volume, clip),
+            uniforms_view(torch.as_tensor(flat, device=resolve_device(device))))

@@ -4,19 +4,47 @@ Counterpart of webgl_raytracer_tpu/render/frame.py for the path-traced
 mode. Each frame traces spp new samples per pixel and folds them into a
 running fp32 mean (prev*N + x)/(N+1); a camera or settings change resets
 N to 0 through reset_accumulation().
+
+How frames run. One frame (_frame: camera rays, the transport, the
+running mean, the frame index and the block's overflow and ray totals) is
+device work on tensors the Renderer owns, with no host read on the
+kernels' path. On the card with the kernels (impl=None) it is captured
+once as a CUDA graph, the counterpart of the JAX package's
+_render_frames_fused (a lax.scan that runs `count` frames as one XLA
+program): render_frames(count) replays the graph `count` times and then
+reads the block's totals back once. On CPU tensors, and with
+impl="plain", the same frame function runs eagerly: the plain traces read
+the host and are never captured. A failed capture or replay raises.
+
+A frame whose binned buffer overflowed (integrator._binned_transport)
+counts in the block's totals; the block is then redone frame by frame
+through integrator.render_batch_stats, which takes the permuted transport,
+from the accumulator as it stood at the block's start: the port's form of
+the JAX package's lax.cond fallback, with the same frames.
+
+The graph bakes in what the frame reads on the host while it is traced:
+the StaticFlags, the size, the scene and environment, impl and the
+transport knobs (integrator.TRANSPORT_KNOBS); a change of any of them
+recaptures. The uniforms are one device buffer (config.uniforms_view)
+refreshed in place, so a camera move or a uniform setting needs none.
 """
 
 from __future__ import annotations
+
+import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.kernels import launches
 from ..ops.tonemap import apply_tonemap
 from ..scene.camera import OrbitCamera
 from ..scene.compile import SceneBuffers, scene_bounds, scene_scale
-from .config import RenderSettings, split_settings
-from .integrator import render_batch
+from .config import (UNIFORM_SIZE, RenderSettings, split_settings, static_flags,
+                     uniform_values, uniforms_view)
+from .integrator import (TRANSPORT_KNOBS, render_batch_flagged, render_batch_stats)
 from .lights import light_dirs_for_camera
 
 
@@ -44,14 +72,37 @@ def morton_pixel_order(width: int, height: int):
     return xx.ravel()[order], yy.ravel()[order], inverse
 
 
+def running_mean(accum, color, frame_index) -> None:
+    """accum <- color at frame 0, else (accum*N + color)/(N + 1), in place;
+    frame_index N is a 0-d integer tensor on accum's device. The divisor is
+    a tensor: a Python-scalar divisor would turn into a multiply by its
+    reciprocal on CUDA."""
+    fi = frame_index.to(torch.float32)
+    torch.where(frame_index == 0, color, (accum * fi + color) / (fi + 1.0), out=accum)
+
+
+@dataclass
+class _Captured:
+    """A captured frame and what it was captured for."""
+    graph: torch.cuda.CUDAGraph
+    key: tuple
+    held: tuple          # the scene and env the key names by id, kept alive
+    launches: dict       # kernel launches one replay makes, by name
+
+
 class Renderer:
     """Owns the scene and environment on its device, the settings, the
-    camera and the progressive accumulator.
+    camera, the progressive accumulator and the captured frame.
 
     device: None means cuda:0 (raises without a GPU); "cpu" renders with
     the plain traces. env: EnvBuffers (env/) or None for ambient light only.
     impl: None (kernels on CUDA tensors, plain versions on CPU ones) or
-    "plain" to force the plain traces on a CUDA device (comparison runs).
+    "plain" to force the plain traces on a CUDA device (comparison runs,
+    eager).
+
+    stats counts captures, blocks whose binned buffer overflowed and the
+    frames redone for them; ray_counts holds the (path, occlusion) rays of
+    the frames accumulated since the last reset.
     """
 
     def __init__(self, scene: SceneBuffers, settings: RenderSettings | None = None,
@@ -59,19 +110,45 @@ class Renderer:
                  impl: str | None = None, auto_fit: bool = True):
         self.settings = settings or RenderSettings()
         self.device = resolve_device(device)
-        self.scene = scene if scene.device == self.device else scene.to(self.device)
-        self.env = None
-        self.set_env(env)
         self.impl = impl
         self.width = int(width)
         self.height = int(height)
+        self.base_width = self.width
+        self.base_height = self.height
+        self.scale = 1.0
         self.camera = OrbitCamera(width=self.width, height=self.height)
         self.frame_index = 0
+        self.ray_counts = (0, 0)
+        self.stats = {"captures": 0, "overflowed_blocks": 0, "redone_frames": 0}
+        self._graph = None
         self._accum = None
-        self._px = None
-        self._py = None
-        self._unperm = None
+        self._px = self._py = self._unperm = None
+        self._u = self._uflat = self._uhost = None
+        self._fi = None          # int64 0-d: the next frame's index, on the device
+        self._totals = None      # int64[3]: the block's overflows, path and occlusion rays
+        self.env = None
+        self.set_env(env)
+        self.set_scene(scene, auto_fit=auto_fit)
 
+    # -- state management ---------------------------------------------------
+
+    def reset_accumulation(self) -> None:
+        self.frame_index = 0
+        self.ray_counts = (0, 0)
+
+    def set_env(self, env) -> None:
+        """Swap the environment (EnvBuffers or None) and restart
+        accumulation."""
+        if env is not None and env.device != self.device:
+            env = env.to(self.device)
+        self.env = env
+        self._release_graph()
+        self.reset_accumulation()
+
+    def set_scene(self, scene: SceneBuffers, auto_fit: bool = True) -> None:
+        """Swap the compiled scene: bounds, scene scale, ray bias and the
+        camera fit are recomputed; accumulation restarts."""
+        self.scene = scene if scene.device == self.device else scene.to(self.device)
         self.bounds = scene_bounds(self.scene)
         self.scene_scale = scene_scale(self.scene)
         # Scale-derived ray bias.
@@ -80,17 +157,27 @@ class Renderer:
         self.settings.t_min = suggested
         if auto_fit:
             self.camera.fit_to_bounds(*self.bounds)
-
-    def reset_accumulation(self) -> None:
-        self.frame_index = 0
-
-    def set_env(self, env) -> None:
-        """Swap the environment (EnvBuffers or None) and restart
-        accumulation."""
-        if env is not None and env.device != self.device:
-            env = env.to(self.device)
-        self.env = env
+        self._release_graph()
         self.reset_accumulation()
+
+    def resize(self, width: int, height: int) -> None:
+        if width != self.width or height != self.height:
+            self.width, self.height = int(width), int(height)
+            self._release_graph()        # it reads the old size's buffers
+            self._accum = None
+            self._px = self._py = self._unperm = None
+            self.reset_accumulation()
+        self.camera.width, self.camera.height = self.width, self.height
+
+    def set_scale(self, scale: float) -> None:
+        """Internal render-resolution scale: the path tracer renders at
+        base x scale, dimensions snapped to 16-pixel tiles; accumulation
+        resets on a change."""
+        scale = float(min(2.0, max(0.05, scale)))
+        w = max(16, int(round(self.base_width * scale / 16.0)) * 16)
+        h = max(16, int(round(self.base_height * scale / 16.0)) * 16)
+        self.scale = scale
+        self.resize(w, h)
 
     def _pixel_grids(self):
         """Flat pixel index tensors in Morton-ordered 16x16 tiles (y = 0 is
@@ -104,62 +191,181 @@ class Renderer:
         return self._px, self._py
 
     def frame_inputs(self):
-        """(flags, uniforms, px, py) for the next frame."""
+        """(flags, uniforms, px, py) for the next frame; the uniforms are
+        tensors of their own, not the Renderer's buffer."""
         s = self.settings
         basis = self.camera.basis()
-        light_dirs = light_dirs_for_camera(s.lights, basis)
-        clip = self.active_clip_plane(basis)
-        flags, uniforms = split_settings(s, basis, light_dirs,
-                                         has_env=self.env is not None, clip=clip,
+        flags, uniforms = split_settings(s, basis, light_dirs_for_camera(s.lights, basis),
+                                         has_env=self.env is not None,
+                                         clip=self.active_clip_plane(basis),
                                          device=self.device)
         px, py = self._pixel_grids()
         return flags, uniforms, px, py
 
     def active_clip_plane(self, basis):
-        """Camera-forward clip plane: None or (normal, offset, side)."""
+        """Camera-forward clip plane, or the locked one
+        (lock_clip_plane): None or (normal, offset, side)."""
         s = self.settings
         if not s.clip_enabled:
             return None
-        normal = np.asarray(basis.forward, np.float64)
+        if s.clip_locked and s.clip_locked_normal is not None:
+            normal = np.asarray(s.clip_locked_normal, np.float64)
+        else:
+            normal = np.asarray(basis.forward, np.float64)
         normal = normal / (np.linalg.norm(normal) or 1.0)
-        plane_point = np.asarray(basis.origin) + normal * s.clip_distance
-        offset = float(normal @ plane_point)
-        cam_side = float(normal @ np.asarray(basis.origin)) - offset
-        side = 1.0 if cam_side >= 0 else -1.0
+        if s.clip_locked and s.clip_locked_offset is not None:
+            offset = float(s.clip_locked_offset)
+        else:
+            plane_point = np.asarray(basis.origin) + normal * s.clip_distance
+            offset = float(normal @ plane_point)
+        if s.clip_locked and s.clip_locked_side is not None:
+            side = float(s.clip_locked_side)
+        else:
+            cam_side = float(normal @ np.asarray(basis.origin)) - offset
+            side = 1.0 if cam_side >= 0 else -1.0
         return (normal.astype(np.float32), offset, side)
 
-    def render_frame(self) -> bool:
-        """Trace one progressive frame into the accumulator. Returns False
-        when max_frames has been reached (accumulation is kept)."""
+    def lock_clip_plane(self) -> None:
+        """Freeze the current camera-derived clip plane in world space."""
+        plane = self.active_clip_plane(self.camera.basis())
+        if plane is None:
+            return
+        normal, offset, side = plane
+        self.settings.clip_locked = True
+        self.settings.clip_locked_normal = tuple(float(v) for v in normal)
+        self.settings.clip_locked_offset = offset
+        self.settings.clip_locked_side = side
+
+    def unlock_clip_plane(self) -> None:
+        self.settings.clip_locked = False
+        self.settings.clip_locked_normal = None
+        self.settings.clip_locked_offset = None
+        self.settings.clip_locked_side = None
+
+    # -- rendering ----------------------------------------------------------
+
+    def _frame_setup(self):
+        """The next frames' flags. Refreshes the device uniforms where they
+        changed (one copy) and allocates the frame's buffers."""
         s = self.settings
-        if s.max_frames > 0 and self.frame_index >= s.max_frames:
-            return False
-        flags, uniforms, px, py = self.frame_inputs()
-        color = render_batch(self.scene, flags, uniforms, px, py,
-                             self.frame_index, env=self.env, impl=self.impl)
-        if self._accum is None or self.frame_index == 0:
-            self._accum = color
-        else:
-            # In place: the running mean never needs a second [B,3] buffer.
-            # The divisor is a device tensor: a Python-scalar divisor would
-            # turn into a multiply by its reciprocal on CUDA.
-            fi = float(self.frame_index)
-            denom = torch.tensor(fi + 1.0, dtype=torch.float32, device=self.device)
-            self._accum.mul_(fi).add_(color).div_(denom)
-        self.frame_index += 1
-        return True
+        basis = self.camera.basis()
+        clip = self.active_clip_plane(basis)
+        flags = static_flags(s, has_env=self.env is not None, clip=clip)
+        values = uniform_values(s, basis, light_dirs_for_camera(s.lights, basis), clip)
+        if self._uflat is None:
+            self._uflat = torch.empty(UNIFORM_SIZE, dtype=torch.float32, device=self.device)
+            self._u = uniforms_view(self._uflat)
+            self._fi = torch.zeros((), dtype=torch.int64, device=self.device)
+            self._totals = torch.zeros(3, dtype=torch.int64, device=self.device)
+        if self._uhost is None or not np.array_equal(values, self._uhost):
+            self._uflat.copy_(torch.from_numpy(values))
+            self._uhost = values
+        px, _ = self._pixel_grids()
+        if self._accum is None:
+            self._accum = torch.zeros((px.shape[0], 3), dtype=torch.float32,
+                                      device=self.device)
+        return flags
+
+    def _frame(self, flags) -> None:
+        """One progressive frame into the accumulator at the device frame
+        index, which it advances; the frame's overflow flag and ray counts
+        add to the block's totals. No host read on the kernels' path."""
+        color, rays, overflow = render_batch_flagged(
+            self.scene, flags, self._u, self._px, self._py, self._fi, env=self.env,
+            impl=self.impl)
+        running_mean(self._accum, color, self._fi)
+        self._totals.add_(torch.stack([overflow, rays[0], rays[1]]))
+        self._fi.add_(1)
+
+    def _release_graph(self) -> None:
+        if self._graph is not None:
+            self._graph.graph.reset()
+            self._graph = None
+
+    def _captured(self, flags) -> _Captured:
+        """The captured frame for these flags and the current scene, env,
+        size, impl and transport knobs: the one held, or a new capture.
+        A new capture first runs the frame once on a side stream (it builds
+        the kernels and the scene's operands, which capture cannot), then
+        restores the accumulator and records one frame; the launch
+        counters keep the warm-up's launches and learn the replay's."""
+        key = (flags, self.width, self.height, id(self.scene), id(self.env), self.impl,
+               tuple(os.environ.get(k) for k in TRANSPORT_KNOBS))
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        self._release_graph()
+        saved = self._accum.clone()
+        self._fi.fill_(self.frame_index)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._frame(flags)
+        main.wait_stream(side)
+        self._accum.copy_(saved)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(launches)
+        with torch.cuda.graph(graph):
+            self._frame(flags)
+        per_replay = {name: launches[name] - n for name, n in before.items()}
+        launches.update(before)
+        self.stats["captures"] += 1
+        self._graph = _Captured(graph, key, (self.scene, self.env), per_replay)
+        return self._graph
 
     def render_frames(self, count: int) -> bool:
-        """Trace `count` progressive frames. Returns False when max_frames
-        was already reached."""
+        """Trace `count` progressive frames: on the card, `count` replays of
+        the captured frame and one host read of the block's totals.
+        Returns False when max_frames was already reached."""
         s = self.settings
         if s.max_frames > 0:
             count = min(count, max(0, s.max_frames - self.frame_index))
         if count <= 0:
             return False
-        for _ in range(count):
-            self.render_frame()
+        flags = self._frame_setup()
+        captured = (self._captured(flags)
+                    if self.device.type == "cuda" and self.impl is None else None)
+        start = self.frame_index
+        saved = self._accum.clone() if start > 0 else None
+        self._fi.fill_(start)
+        self._totals.zero_()
+        if captured is None:
+            for _ in range(count):
+                self._frame(flags)
+        else:
+            for _ in range(count):
+                captured.graph.replay()
+            for name, n in captured.launches.items():
+                launches[name] += n * count
+        overflowed, paths, occl = self._totals.tolist()
+        if overflowed:
+            paths, occl = self._redo(flags, start, count, saved)
+        self.frame_index = start + count
+        self.ray_counts = (self.ray_counts[0] + paths, self.ray_counts[1] + occl)
         return True
+
+    def _redo(self, flags, start, count, saved):
+        """Redo frames [start, start + count) eagerly through
+        render_batch_stats (the permuted transport where the binned buffer
+        overflows) from the accumulator `saved` at the block's start.
+        Returns their (path, occlusion) rays."""
+        if saved is not None:
+            self._accum.copy_(saved)
+        paths = occl = 0
+        for f in range(start, start + count):
+            self._fi.fill_(f)
+            color, (p, o) = render_batch_stats(self.scene, flags, self._u, self._px,
+                                               self._py, f, env=self.env, impl=self.impl)
+            running_mean(self._accum, color, self._fi)
+            paths, occl = paths + int(p), occl + int(o)
+        self.stats["overflowed_blocks"] += 1
+        self.stats["redone_frames"] += count
+        return paths, occl
+
+    def render_frame(self) -> bool:
+        """Trace one progressive frame into the accumulator. Returns False
+        when max_frames has been reached (accumulation is kept)."""
+        return self.render_frames(1)
 
     def render(self, frames: int | None = None) -> np.ndarray:
         """Render `frames` progressive frames (default settings.max_frames)
@@ -167,6 +373,8 @@ class Renderer:
         n = frames if frames is not None else max(1, self.settings.max_frames)
         self.render_frames(n)
         return self.image_u8()
+
+    # -- output -------------------------------------------------------------
 
     def accumulated(self) -> np.ndarray:
         """Linear accumulated radiance f32[H,W,3] (top row first)."""
@@ -182,3 +390,38 @@ class Renderer:
 
     def image_u8(self) -> np.ndarray:
         return (np.clip(self.image(), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the accumulator (ray order), its frame count and the
+        camera to an .npz with the JAX package's keys, so that either
+        package loads the other's checkpoint."""
+        accum = (self._accum.cpu().numpy() if self._accum is not None
+                 else np.zeros((self.width * self.height, 3), np.float32))
+        np.savez_compressed(
+            path, accum=accum, frame_index=self.frame_index, width=self.width,
+            height=self.height, cam_target=np.asarray(self.camera.target, np.float64),
+            cam_distance=self.camera.distance,
+            cam_rotation=np.asarray(self.camera.rotation, np.float64),
+            cam_fov=self.camera.fov)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume accumulation from a checkpoint of the same resolution
+        (raises ValueError otherwise)."""
+        with np.load(path) as data:
+            w, h = int(data["width"]), int(data["height"])
+            if (w, h) != (self.width, self.height):
+                raise ValueError(f"Checkpoint resolution {w}x{h} != renderer "
+                                 f"{self.width}x{self.height}")
+            accum = torch.from_numpy(np.asarray(data["accum"], np.float32))
+            px, _ = self._pixel_grids()
+            if self._accum is None:
+                self._accum = torch.zeros((px.shape[0], 3), dtype=torch.float32,
+                                          device=self.device)
+            self._accum.copy_(accum)
+            self.frame_index = int(data["frame_index"])
+            self.camera.target = data["cam_target"]
+            self.camera.distance = float(data["cam_distance"])
+            self.camera.rotation = data["cam_rotation"]
+            self.camera.fov = float(data["cam_fov"])

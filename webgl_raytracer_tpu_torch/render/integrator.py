@@ -21,17 +21,18 @@ the JAX package does:
                 rays, or WRT_CHUNKS=1): every ray through every bounce;
   permuted      (_run_permuted) primaries traced full width, rays moved
                 hit-first in 32-ray blocks, then the bounces chunk by
-                chunk; a chunk whose rays all died skips its later bounces.
+                chunk.
                 With WRT_ATTRS=1 (_use_attrs) the traces return the
                 winner's attribute row (ops/trace.trace_closest_attrs) and
                 the rows ride through the permutation instead of the slot;
   binned        (_binned_transport, the default where the kernels run)
                 primary hits packed live-first into a buffer of n/12
-                lanes, the bounces run over its live prefix, re-packed by
-                a coherence key (direction octant x origin cell) after each
-                bounce but the last; radiance returns to pixel order once
-                at the end.
-                A frame with more live rays than the buffer holds takes the
+                lanes, the bounces run over the whole buffer (dead lanes at
+                its tail), re-packed by a coherence key (direction octant x
+                origin cell) after each bounce but the last; radiance
+                returns to pixel order once at the end.
+                A frame with more live rays than the buffer holds is
+                flagged on the device; its caller redoes it through the
                 permuted transport. WRT_BINNED=0 turns it off.
 
 Each transport is a permutation of the same per-lane computation, so all
@@ -42,9 +43,16 @@ Not ported yet, and raising NotImplementedError when asked for: the
 volume march, visualisation modes 1-3, the stack tracer and the
 brute-force (use_bvh=False) sweep.
 
-Skip gates: where the JAX package skips work with
-`lax.cond(jnp.any(mask))`, this module tests `bool(mask.any())` on the
-host. Each is a device->host sync per trace; a later change removes them.
+No host reads. Where the JAX package skips work with
+`lax.cond(jnp.any(mask))`, this module runs the masked work anyway: a
+trace with no active lane returns the miss record, and shading a batch
+with no live lane adds 0.0 to every radiance, so the frame is the same
+bit for bit. The over-cap test of the binned buffer is a device flag. So
+on the kernels a frame (render_batch_flagged) reads nothing back to the
+host and can be captured as a CUDA graph (render/frame.py); the plain
+traces of ops/trace.py keep their host syncs and are never captured.
+render_batch_stats is the eager contract: it reads the flag once and
+redoes a flagged frame through the permuted transport.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from ..ops import sampling as S
 from ..ops import vec3 as V
 from ..ops.envmap import env_pdf_v3, sample_env_direction_v3, sample_env_radiance_v3
 from ..ops.rng import init_seed, rand, rand2
-from ..ops.trace import ATTR_MISS_COL, attr_slot, kernel_supported
+from ..ops.trace import attr_slot, kernel_supported
 from ..ops.wavefront import (HitRecord, _finalize_hit, wf_trace_any3_v3,
                              wf_trace_any_v3, wf_trace_closest_v3)
 from ..scene.bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
@@ -92,68 +100,17 @@ def _clip_tuple(flags, u):
     return (u.clip_normal, u.clip_offset, u.clip_side)
 
 
+# The environment knobs the transports read while a frame is traced; a
+# captured frame bakes their values in (render/frame.py keys on them).
+TRANSPORT_KNOBS = ("WRT_CHUNKS", "WRT_BINNED", "WRT_BIN_CAP_DIV", "WRT_ATTRS")
+
+
 def _use_attrs(scene) -> bool:
     """Shade from the attrs kernel's winner rows instead of gathering
     after the trace (WRT_ATTRS=1; off by default, as in the JAX package,
     which measured it slower on its TPU). Frames are the same bit for bit
     either way."""
     return os.environ.get("WRT_ATTRS") == "1" and kernel_supported(scene)
-
-
-def _miss_record(n, device) -> HitRecord:
-    return HitRecord(
-        t=torch.full((n,), BIG, dtype=torch.float32, device=device),
-        prim_type=torch.full((n,), -1, dtype=torch.int32, device=device),
-        prim_local=torch.full((n,), -1, dtype=torch.int32, device=device),
-        prim_slot=torch.full((n,), -1, dtype=torch.int32, device=device),
-        extra=torch.zeros((n, 3), dtype=torch.float32, device=device),
-        cost=None,
-    )
-
-
-def _miss_attrs(n, device) -> torch.Tensor:
-    attrs = torch.zeros((n, 32), dtype=torch.float32, device=device)
-    attrs[:, ATTR_MISS_COL] = -1.0
-    return attrs
-
-
-def _closest_hit(scene, flags, o3, d3, t_min, clip, active=None,
-                 secondary=False, full_record=True, with_attrs=False, impl=None):
-    """Closest-hit trace, skipped when no lane is active (host sync).
-    secondary marks bounce rays (per-ray routing on cluster-rich scenes;
-    the JAX package's _trace_or_skip is this call with secondary=True).
-    full_record=False returns the (t, prim_slot) record the chunked
-    transports finalise later; with_attrs returns (record, attrs [B,32])."""
-    if active is not None and not bool(active.any()):
-        n, device = o3[0].shape[0], o3[0].device
-        rec = _miss_record(n, device)
-        return (rec, _miss_attrs(n, device)) if with_attrs else rec
-    return wf_trace_closest_v3(scene, o3, d3, t_min, clip, active=active,
-                               secondary=secondary, full_record=full_record,
-                               with_attrs=with_attrs, impl=impl)
-
-
-def _any_hit(scene, flags, o3, d3, t_min, clip, accept_min=None, t_max=BIG,
-             active=None, divergent=False, impl=None):
-    """Single-direction occlusion, skipped when no candidate is live
-    (host sync). divergent marks env-NEE batches (per-ray routing)."""
-    if active is not None and not bool(active.any()):
-        return torch.zeros(o3[0].shape, dtype=torch.bool, device=o3[0].device)
-    return wf_trace_any_v3(scene, o3, d3, t_min, t_max=t_max,
-                           accept_min=accept_min, clip=clip, active=active,
-                           divergent=divergent, impl=impl)
-
-
-def _any_hit3(scene, flags, o3, d3s, t_min, clip, accept_min, actives,
-              impl=None):
-    """Fused 3-direction occlusion, skipped when no candidate is live
-    (host sync)."""
-    live = actives[0] | actives[1] | actives[2]
-    if not bool(live.any()):
-        z = torch.zeros_like(live)
-        return (z, z.clone(), z.clone())
-    return wf_trace_any3_v3(scene, o3, d3s, t_min, accept_min=accept_min,
-                            clip=clip, actives=actives, impl=impl)
 
 
 def _cylinder_normal_v3(pos, p1, p2, hit_type):
@@ -308,9 +265,11 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
         use_attrs."""
         st.nrays = st.nrays + st.alive.sum()
         if rec is None:
-            rec = _closest_hit(scene, flags, st.origin, st.direction, u.t_min,
-                               clip, active=st.alive, secondary=bounce > 0,
-                               with_attrs=use_attrs, impl=impl)
+            # secondary: bounce rays take the per-ray routing on
+            # cluster-rich scenes (the JAX package's _trace_or_skip).
+            rec = wf_trace_closest_v3(scene, st.origin, st.direction, u.t_min, clip,
+                                      active=st.alive, secondary=bounce > 0,
+                                      with_attrs=use_attrs, impl=impl)
             if use_attrs:
                 rec, attrs = rec
         hit = rec.prim_type >= 0
@@ -332,11 +291,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
         for c in range(3):
             st.radiance[c].add_(torch.where(miss, add[c], 0.0))
         st.alive = st.alive & hit
-
-        # Everything below runs only when some lane hit (host sync).
-        if bool(st.alive.any()):
-            st = shade_tail(bounce, rec, attrs, st)
-        return st
+        return shade_tail(bounce, rec, attrs, st)
 
     def shade_tail(bounce: int, rec: HitRecord, attrs, st: PathState) -> PathState:
         seed = st.seed
@@ -413,8 +368,9 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
             for s in light_samples:
                 noccl = noccl + s[4].sum()
             d3s, acts = _fan_query(light_samples, n, device)
-            occ3 = _any_hit3(scene, flags, shadow_origin, d3s, u.t_min, clip,
-                             shadow_min.expand(n), acts, impl=impl)
+            occ3 = wf_trace_any3_v3(scene, shadow_origin, d3s, u.t_min,
+                                    accept_min=shadow_min.expand(n), clip=clip,
+                                    actives=acts, impl=impl)
             for j, s in enumerate(light_samples):
                 occluded_by_light[s[0]] = occ3[j]
 
@@ -451,8 +407,9 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
             ndl_e = V.dot(sn, env_dir)
             candidate = shade_lane & (ndl_e > 0.0)
             noccl = noccl + candidate.sum()
-            occluded = _any_hit(scene, flags, shadow_origin, env_dir, u.t_min,
-                                clip, active=candidate, divergent=True, impl=impl)
+            occluded = wf_trace_any_v3(scene, shadow_origin, env_dir, u.t_min, t_max=BIG,
+                                       clip=clip, active=candidate, divergent=True,
+                                       impl=impl)
             open_sky = candidate & ~occluded
             spec, f = _ggx_eval(sn, v, env_dir, rough, f0)
             diff = B.eval_diffuse_brdf_v3(sn, v, env_dir, base_color, diff_rough, wrap)
@@ -606,9 +563,6 @@ def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None,
     bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl)
     st = _initial_state(seed0, origin0, dir0, origin0[0].device)
     for bounce in range(flags.max_bounces):
-        # Bounces past the first run only while some path is alive.
-        if bounce > 0 and not bool(st.alive.any()):
-            break
         if bounce == 0:
             st = bounce_body(0, st, rec=first_rec, attrs=first_attrs,
                              use_attrs=use_attrs)
@@ -777,30 +731,31 @@ def _use_binned(scene, flags, n) -> bool:
 
 
 def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
-                      fallback, impl=None):
+                      impl=None):
     """Coherence-binned transport (the JAX package's _binned_transport).
 
     Bounce 0 packs the primary hits live-first (stable, so the final
-    expand is monotone) into a buffer of cap = compact_cap(n, div) lanes,
-    finalises their records there and shades them. After each bounce but
-    the last the whole buffer is re-packed by bin_key, live rows first,
-    every per-lane value moving with its row, radiance and the row's
-    bounce-0 slot (`home`) included. Each bounce runs once over the
-    buffer's live prefix, whose length the re-pack counts on the host (the
-    skip gate's sync). At the end one inverse move by home and one expand
-    return the radiance to pixel order, where the primary misses'
-    environment radiance is added.
+    expand is monotone) into a buffer of cap = compact_cap(n, div) lanes
+    and finalises the whole buffer, prim_slot -1 on its dead lanes; every
+    bounce then runs over the whole buffer, whose live lanes are a prefix
+    (`lanes < live count`, a device tensor) and whose dead lanes fill whole
+    warps at its tail. After each bounce but the last the buffer is
+    re-packed by bin_key, live rows first, every per-lane value moving with
+    its row, radiance and the row's bounce-0 slot (`home`) included. At
+    the end one inverse move by home and one expand return the radiance to
+    pixel order, where the primary misses' environment radiance is added.
+    WRT_BIN_CAP_DIV sets div (default 12).
 
-    A frame with more primary hits than cap (n_live, one host sync) runs
-    `fallback` (the permuted transport) instead. WRT_BIN_CAP_DIV sets div
-    (default 12). Returns (radiance triple, (path rays, occlusion rays))."""
+    Returns (radiance triple, (path rays, occlusion rays), overflow): a
+    0-d int64 tensor, 1 where the frame has more primary hits than cap.
+    Such a frame's radiance and counts are not the frame's; the caller
+    redoes it through the permuted transport (render_batch_stats, or
+    render/frame.py for a block of captured frames)."""
     n = origin[0].shape[0]
     device = seed.device
     hit = rec0.prim_slot >= 0
-    n_live = int(hit.sum())
+    n_live = hit.sum()
     cap = CP.compact_cap(n, int(os.environ.get("WRT_BIN_CAP_DIV") or 12))
-    if n_live > cap:
-        return fallback()
 
     # The primary misses' radiance, in pixel order (bounce 0 of trace_paths
     # for a lane that misses).
@@ -827,26 +782,20 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
     lanes = torch.arange(cap, device=device)
     st.alive = lanes < n_live
     home = lanes
-    m = n_live
-    live = slice(0, m)
-    rec_k = _finalize_hit(scene, tuple(x[live] for x in st.origin),
-                          tuple(x[live] for x in st.direction),
-                          u.t_min.expand(m), clip, cols[7][live],
-                          CP.int_col(rows, 8)[live], cost=None, refine_sphere_t=True)
+    rec_k = _finalize_hit(scene, st.origin, st.direction, u.t_min.expand(cap), clip,
+                          cols[7], torch.where(st.alive, CP.int_col(rows, 8), -1),
+                          cost=None, refine_sphere_t=True)
 
-    exact = True            # m counts the live lanes (after a pack)
+    bounce_body = _make_bounce_step(scene, env, flags, u, cap, impl=impl)
     for b in range(flags.max_bounces):
-        if m == 0 or (not exact and not bool(st.alive[:m].any())):
-            break
-        _bounce_prefix(scene, env, flags, u, b, st, m, rec_k if b == 0 else None, impl)
-        exact = False
+        st = bounce_body(b, st, rec=rec_k if b == 0 else None)
         if b < flags.max_bounces - 1:
             key = CP.bin_key(st.origin, st.direction, lo, inv_extent)
             order = torch.argsort(torch.where(st.alive, key, CP.DEAD_KEY), stable=True)
             rows = CP.gather_rows(CP.pack_rows(
                 [st.seed, *st.origin, *st.direction, *st.throughput, st.last_pdf,
                  *st.radiance, home]), order)
-            m = int(st.alive.sum())
+            m = st.alive.sum()
             cols = rows.t().contiguous()
             st = PathState(seed=CP.seed_col(rows, 0),
                            origin=(cols[1], cols[2], cols[3]),
@@ -856,84 +805,83 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
                            radiance=(cols[11], cols[12], cols[13]),
                            alive=lanes < m, nrays=st.nrays, noccl=st.noccl)
             home = CP.int_col(rows, 14)
-            exact = True
 
     back = torch.argsort(home, stable=True)
     rad_c = V.min_with(tuple(r[back] for r in st.radiance), RADIANCE_CLAMP)
     radiance = V.add(miss_rad, CP.expand_cols(rad_c, hit))
-    return radiance, (st.nrays + (n - n_live), st.noccl)
+    overflow = (n_live > cap).to(torch.int64)
+    return radiance, (st.nrays + (n - n_live), st.noccl), overflow
 
 
-def _bounce_prefix(scene, env, flags, u, bounce, st, m, rec, impl):
-    """Run bounce `bounce` over lanes [0, m) of the buffer state `st` (the
-    lanes past m are dead) and write the results back in place."""
-    def head(x):
-        return x[:m]
-
-    sub = PathState(seed=head(st.seed), origin=tuple(map(head, st.origin)),
-                    direction=tuple(map(head, st.direction)),
-                    throughput=tuple(map(head, st.throughput)),
-                    radiance=tuple(head(x).clone() for x in st.radiance),
-                    last_pdf=head(st.last_pdf), alive=head(st.alive),
-                    nrays=st.nrays, noccl=st.noccl)
-    out = _make_bounce_step(scene, env, flags, u, m, impl=impl)(bounce, sub, rec=rec)
-    for full, part in ((st.seed, out.seed), (st.last_pdf, out.last_pdf),
-                       (st.alive, out.alive),
-                       *zip(st.origin, out.origin), *zip(st.direction, out.direction),
-                       *zip(st.throughput, out.throughput),
-                       *zip(st.radiance, out.radiance)):
-        if part.data_ptr() != full.data_ptr():
-            full[:m] = part
-    st.nrays, st.noccl = out.nrays, out.noccl
-
-
-def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=None):
+def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=None,
+                     binned=True):
     """One path-traced sample for every pixel, through the transport the
     JAX package's _sample_radiance picks: the whole batch for one chunk;
     else a full-width primary trace, then the permuted transport with
-    attrs rows (_use_attrs), the binned transport (_use_binned, falling
-    back to the permuted one over its cap) or the permuted transport.
-    Returns (radiance triple, (path rays, occlusion rays))."""
+    attrs rows (_use_attrs), the binned transport (_use_binned, unless
+    binned=False) or the permuted transport.
+    Returns (radiance triple, (path rays, occlusion rays), overflow): a 0-d
+    int64 tensor, 1 where the binned buffer overflowed (the sample must be
+    redone with binned=False), else 0."""
     check_supported(flags)
     seed, origin, direction = generate_camera_rays(u, flags, px, py, frame_index, s)
     n = px.shape[0]
+    no_overflow = torch.zeros((), dtype=torch.int64, device=px.device)
     chunks = _chunk_count(n)
     if chunks == 1:
         radiance, _, rays = trace_paths(scene, flags, u, origin, direction, seed,
                                         env=env, impl=impl)
-        return radiance, rays
+        return radiance, rays, no_overflow
     clip = _clip_tuple(flags, u)
     attrs0 = None
     if _use_attrs(scene):
-        rec0, attrs0 = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
-                                    with_attrs=True, impl=impl)
+        rec0, attrs0 = wf_trace_closest_v3(scene, origin, direction, u.t_min, clip,
+                                           with_attrs=True, impl=impl)
     else:
-        rec0 = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
-                            full_record=False, impl=impl)
-
-    def permuted():
-        return _run_permuted(scene, env, flags, u, seed, origin, direction, rec0,
-                             attrs0, clip, chunks, impl=impl)
-
-    if attrs0 is None and _use_binned(scene, flags, n):
+        rec0 = wf_trace_closest_v3(scene, origin, direction, u.t_min, clip,
+                                   full_record=False, impl=impl)
+    if binned and attrs0 is None and _use_binned(scene, flags, n):
         return _binned_transport(scene, env, flags, u, seed, origin, direction,
-                                 rec0, clip, permuted, impl=impl)
-    return permuted()
+                                 rec0, clip, impl=impl)
+    radiance, rays = _run_permuted(scene, env, flags, u, seed, origin, direction,
+                                   rec0, attrs0, clip, chunks, impl=impl)
+    return radiance, rays, no_overflow
 
 
-def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None):
-    """One progressive sample set per pixel -> (colour f32[B,3], (path
-    rays, occlusion rays)). Exposure is applied before accumulation."""
+def render_batch_flagged(scene, flags, u, px, py, frame_index, env=None, impl=None,
+                         binned=True):
+    """One progressive sample set per pixel with no host read on the
+    kernels' path: (colour f32[B,3], (path rays, occlusion rays), overflow),
+    overflow a 0-d int64 tensor counting the samples whose binned buffer
+    overflowed. Where it is not 0 the colour and counts are not the
+    frame's: redo the frame with binned=False. Exposure is applied before
+    accumulation. frame_index: an int or an integer tensor (a captured
+    frame's device counter)."""
     device = px.device
     total = V.full(px.shape, 0.0, device=device)
     rays = (torch.zeros((), dtype=torch.int64, device=device),
             torch.zeros((), dtype=torch.int64, device=device))
+    overflow = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(flags.spp):
-        radiance, nrays = _sample_radiance(scene, flags, u, px, py, frame_index, s,
-                                           env=env, impl=impl)
+        radiance, nrays, over = _sample_radiance(scene, flags, u, px, py, frame_index, s,
+                                                 env=env, impl=impl, binned=binned)
         total = V.add(total, radiance)
         rays = (rays[0] + nrays[0], rays[1] + nrays[1])
-    return V.to_array(V.scale(total, u.exposure / flags.spp)), rays
+        overflow = overflow + over
+    return V.to_array(V.scale(total, u.exposure / flags.spp)), rays, overflow
+
+
+def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None):
+    """One progressive sample set per pixel -> (colour f32[B,3], (path
+    rays, occlusion rays)). Reads the binned transport's overflow flag
+    once: a frame that overflowed is redone through the permuted
+    transport, the JAX package's lax.cond fallback."""
+    color, rays, overflow = render_batch_flagged(scene, flags, u, px, py, frame_index,
+                                                 env=env, impl=impl)
+    if int(overflow):
+        color, rays, _ = render_batch_flagged(scene, flags, u, px, py, frame_index,
+                                              env=env, impl=impl, binned=False)
+    return color, rays
 
 
 def render_batch(scene, flags, u, px, py, frame_index, env=None, impl=None):
