@@ -528,7 +528,8 @@ def _eager_frames(r, frames):
     flags, u, px, py = r.frame_inputs()
     acc, paths, occl = None, 0, 0
     for f in range(frames):
-        color, (p, o) = render_batch_stats(r.scene, flags, u, px, py, f, env=r.env)
+        color, (p, o) = render_batch_stats(r.scene, flags, u, px, py, f, env=r.env,
+                                           vol=r.volume)
         acc = color if f == 0 else (acc * float(f) + color) / torch.tensor(
             f + 1.0, device=color.device)
         paths, occl = paths + int(p), occl + int(o)
@@ -637,3 +638,162 @@ def test_flag_or_knob_change_recaptures(device, monkeypatch):
         assert r.stats["captures"] == captures, (what, value)
         acc, paths, occl = _eager_frames(r, 2)
         assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl), (what, value)
+
+
+# The volume march (ops/volume.py, csrc/volume_march.cu).
+
+def _volume(device, shape=(7, 11, 13), seed=4, scale=3.0):
+    """A random density grid with nz != ny != nx over a box that is not a
+    cube."""
+    from webgl_raytracer_tpu_torch.models.density import volume_buffers_from_numpy
+
+    rng = np.random.default_rng(seed)
+    data = (rng.random(shape) ** 2 * scale).astype(np.float32)
+    return volume_buffers_from_numpy(data, np.array([-2.0, -1.5, -1.0], np.float32),
+                                     np.array([2.5, 1.0, 2.0], np.float32), data.max(),
+                                     device)
+
+
+def _march_rays(n, device, seed=5):
+    """Rays from around the box towards it (1/8 starting inside it, 1/8
+    parallel to y), surfaces before, inside and beyond it, 10% inactive."""
+    rng = np.random.default_rng(seed)
+    o = ((rng.random((n, 3)) - 0.5) * 10.0).astype(np.float32)
+    o[: n // 8] = (rng.random((n // 8, 3)) - 0.5).astype(np.float32)
+    d = ((rng.random((n, 3)) - 0.5) * np.array([4.0, 2.0, 2.5])).astype(np.float32) - o
+    d[n // 8: n // 4, 1] = 0.0
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ts = np.where(rng.random(n) < 0.3, rng.random(n) * 12.0, 1e20).astype(np.float32)
+    tp = (0.2 + rng.random((n, 3))).astype(np.float32)
+
+    def tri(a):
+        return tuple(torch.tensor(np.ascontiguousarray(a[:, i]), device=device)
+                     for i in range(3))
+
+    return (tri(o), tri(d), torch.tensor(ts, device=device), tri(tp),
+            torch.tensor(rng.random(n) < 0.9, device=device))
+
+
+# name: (rays, density scale, step, max steps, how the rays are changed)
+MARCH_EDGE_CASES = {
+    "lanes die mid-march": (1 << 16, 40.0, 0.25, 256, None),
+    "ragged warp": (1013, 2.0, 0.5, 256, None),
+    "rays miss the box": (4096, 2.0, 0.5, 256, "miss"),
+    "t_surface before entry": (4096, 2.0, 0.5, 256, "surface first"),
+    "step 0": (4096, 2.0, 0.0, 256, None),
+    "max_steps 0": (4096, 2.0, 0.5, 0, None),
+    "max_steps 1": (4096, 2.0, 0.5, 1, None),
+    "max_steps 1024": (4096, 0.3, 0.02, 1024, None),
+}
+
+
+@pytest.mark.parametrize("case", list(MARCH_EDGE_CASES))
+def test_volume_march_kernel_matches_plain(device, case):
+    from webgl_raytracer_tpu_torch.ops import volume as PV
+
+    n, scale, step, steps, change = MARCH_EDGE_CASES[case]
+    vol = _volume(device)
+    o, d, ts, tp, act = _march_rays(n, device)
+    if change == "miss":          # from beyond the box's +x face, heading +x
+        o, d = (o[0] + 50.0, o[1], o[2]), (d[0].abs(), d[1], d[2])
+    elif change == "surface first":
+        ts = torch.full_like(ts, 5e-5)
+    args = (vol, o, d, ts, torch.tensor(1e-4, device=device),
+            torch.tensor([0.435, 0.643, 1.0], device=device), torch.tensor(scale, device=device),
+            torch.tensor(1.0, device=device), torch.tensor(step, device=device),
+            torch.tensor(0.0, device=device), tp, act, steps)
+    before = T.launches["volume_march"]
+    kr, kt = PV.march_volume(*args)
+    assert T.launches["volume_march"] == before + 1
+    pr, pt = PV.march_volume(*args, impl="plain")
+    torch.cuda.synchronize()
+    for a, b in zip(kr + kt, pr + pt):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    ran = torch.stack(kr, 1).gt(0).any(1)
+    if change is not None or step == 0.0 or steps == 0:
+        assert not bool(ran.any())
+        assert all(torch.equal(a, b) for a, b in zip(kt, tp))
+    else:
+        assert bool(ran.any())
+    if case == "lanes die mid-march":
+        assert int(torch.stack(kt, 1).eq(0).all(1).sum()) > 100
+
+
+def test_volume_march_kernel_refuses_what_it_cannot_take(device):
+    from webgl_raytracer_tpu_torch.ops import volume as PV
+
+    vol = _volume(device)
+    o, d, ts, tp, act = _march_rays(256, device)
+    color = torch.tensor([0.4, 0.6, 1.0], device=device)
+    with pytest.raises(ValueError, match="max_steps"):
+        PV.march_volume(vol, o, d, ts, 1e-4, color, 1.0, 1.0, 0.5, 0.0, tp, act, 1025)
+    with pytest.raises(ValueError, match="one value"):
+        PV.march_volume(vol, o, d, ts, torch.full((256,), 1e-4, device=device), color,
+                        1.0, 1.0, 0.5, 0.0, tp, act, 8)
+
+
+def _volume_renderer(device, size=128, spacing=0.8):
+    from webgl_raytracer_tpu_torch.app.pipeline import load_molecule_scene
+    from webgl_raytracer_tpu_torch.models import get_builtin_molecule
+
+    loaded = load_molecule_scene(get_builtin_molecule("caffeine"), display_style="stick",
+                                 volume_enabled=True, volume_options=dict(spacing=spacing),
+                                 device=device)
+    r = Renderer(loaded.scene, volume=loaded.volume.to_device_buffers(device), width=size,
+                 height=size, device=device)
+    r.settings.volume_enabled = True
+    return r, loaded
+
+
+@pytest.mark.parametrize("transport", ["whole batch", "permuted"])
+def test_volume_frame_capture_makes_no_host_sync(device, transport, monkeypatch):
+    """A volume frame's warm-up and capture under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from webgl_raytracer_tpu_torch.ops.kernels import library
+
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "1" if transport == "whole batch" else "4"})
+    r, _ = _volume_renderer(device)
+    flags = r._frame_setup()
+    assert flags.volume_enabled
+    r.scene.trace_operands, library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r._captured(flags)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert r.stats["captures"] == 1
+
+
+def test_volume_graph_frames_equal_eager_frames(device, monkeypatch):
+    """Volume frames in 4 chunks (the permuted transport): graph replays
+    equal eager frames bit for bit, ray counts included, through the
+    march kernel; the plain march gives the same frame."""
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "4"})
+    r, _ = _volume_renderer(device)
+    before = T.launches["volume_march"]
+    r.render_frames(1)
+    r.render_frames(2)
+    assert T.launches["volume_march"] > before
+    acc, paths, occl = _eager_frames(r, 3)
+    assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl)
+    assert r.stats == {"captures": 1, "overflowed_blocks": 0, "redone_frames": 0}
+
+
+def test_set_scene_with_a_new_volume_recaptures(device, monkeypatch):
+    """set_scene with a new volume (another grid spacing) recaptures, and
+    the new block equals eager frames of the new volume."""
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "1"})
+    r, loaded = _volume_renderer(device, size=96)
+    r.render_frames(2)
+    first = r._accum.clone()
+    from webgl_raytracer_tpu_torch.models.density import build_nitrogen_density_volume
+    from webgl_raytracer_tpu_torch.models import get_builtin_molecule
+
+    vol2 = build_nitrogen_density_volume(get_builtin_molecule("caffeine"), spacing=0.5)
+    r.set_scene(loaded.scene, volume=vol2.to_device_buffers(device))
+    r.render_frames(2)
+    assert r.stats["captures"] == 2
+    acc, paths, occl = _eager_frames(r, 2)
+    assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl)
+    assert not torch.equal(r._accum, first)

@@ -168,15 +168,18 @@ def test_card_trace_needs_a_cuda_device():
     flags, u, px, py = r.frame_inputs()
     with pytest.raises(ValueError, match="CUDA device"):
         PO.render_batch_oracle(scene, None, flags, u, px, py, 0, trace_device="cpu")
-    with pytest.raises(NotImplementedError, match="volume"):
+    # A volume frame needs its volume (tests/test_torch_volume.py renders one).
+    with pytest.raises(ValueError, match="no volume"):
         PO.render_batch_oracle(scene, None, dataclasses.replace(flags, volume_enabled=True),
                                u, px, py, 0)
 
 
 # The port's CPU frames against its oracle: caffeine at 32x32, 4 frames,
-# lit by the cone lights and with the clip plane (every row runs at 64x64
-# on the card in chip_smoke.py and at 128x128 in the tool).
-GATE_ROWS = [row for row in P.rows() if row.name in ("caffeine-metallic", "caffeine-clip")]
+# lit by the cone lights, with the clip plane and with the density volume
+# (every stream-exact row runs at 64x64 on the card in chip_smoke.py and at
+# 128x128 in the tool).
+GATE_ROWS = [row for row in P.rows()
+             if row.name in ("caffeine-metallic", "caffeine-clip", "caffeine-volume")]
 
 
 @pytest.mark.parametrize("row", GATE_ROWS, ids=[r.name for r in GATE_ROWS])
@@ -189,9 +192,10 @@ def test_port_frames_pass_the_parity_gate_against_the_oracle(row):
 
 def test_parity_table_rows():
     names = [r.name for r in P.rows()]
-    assert len(names) == 11 and len(set(names)) == 11
-    assert "caffeine-volume" not in names and "caffeine-ses-surface-glass" not in names
-    assert [r.name for r in P.rows() if r.glass] == ["glucose-translucent"]
+    assert len(names) == 13 and len(set(names)) == 13
+    assert [r.name for r in P.rows() if r.volume] == ["caffeine-volume"]
+    assert [r.name for r in P.rows() if r.glass] == ["caffeine-ses-surface-glass",
+                                                     "glucose-translucent"]
 
 
 def test_gate_arithmetic():

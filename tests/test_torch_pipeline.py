@@ -2,9 +2,10 @@
 
 Each loader's compiled scene (scene/compile fields: cluster rows, colours,
 boxes, attribute rows, triangle normals and flags, counts) must equal the
-JAX package's compiled scene field by field, bit for bit; the SES surface
-and the density volume are not ported and raise. The last test imports the
-port's pipeline, oracle and parity tool with the JAX package blocked.
+JAX package's compiled scene field by field, bit for bit (the SES surface
+and the density volume: tests/test_torch_surface.py). The last test
+imports the port's pipeline, oracle and parity tool with the JAX package
+blocked.
 """
 
 import os
@@ -104,8 +105,15 @@ def test_display_options_match_jax(style):
 
 @pytest.mark.parametrize("option", ["show_surface", "volume_enabled"])
 def test_unported_scene_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        PP.load_molecule_scene(p_mol("caffeine"), device="cpu", **{option: True})
+    """Both options are ported: they load (SES triangles, a density grid)
+    instead of raising."""
+    loaded = PP.load_molecule_scene(p_mol("caffeine"), device="cpu",
+                                    surface_resolution=0.6, **{option: True})
+    if option == "show_surface":
+        assert loaded.stats["ses_triangles"] == loaded.scene.tri_count > 0
+        assert loaded.volume is None
+    else:
+        assert loaded.volume.nitrogen_count == 4 and loaded.scene.tri_count == 0
 
 
 def test_loaders_default_to_the_card():
@@ -124,8 +132,10 @@ def test_loaders_default_to_the_card():
 
 def test_pipeline_oracle_and_tool_import_without_jax():
     """With the JAX package blocked, the port loads TSTP as a cartoon,
-    renders it on the CPU, runs its oracle on a few pixels and imports the
-    parity tool, and loads no module of JAX or of the JAX package."""
+    renders it on the CPU, runs its oracle on a few pixels, loads caffeine
+    with its SES (the device marching cubes too) and with its density
+    volume and renders the volume frame, imports the parity tool, and
+    loads no module of JAX or of the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['webgl_raytracer_tpu'] = None\n"
@@ -141,7 +151,23 @@ def test_pipeline_oracle_and_tool_import_without_jax():
         "assert r.render(1).shape == (8, 8, 3)\n"
         "flags, u, px, py = r.frame_inputs()\n"
         "c = render_batch_oracle(loaded.scene, None, flags, u, px[:4], py[:4], 0)\n"
-        "assert c.shape == (4, 3) and len(parity_rmse.rows()) == 11\n"
+        "assert c.shape == (4, 3) and len(parity_rmse.rows()) == 13\n"
+        "from webgl_raytracer_tpu_torch.models import get_builtin_molecule\n"
+        "import os\n"
+        "ses = load_molecule_scene(get_builtin_molecule('caffeine'), show_surface=True,\n"
+        "                          surface_resolution=0.6, device='cpu')\n"
+        "assert ses.stats['ses_triangles'] > 0\n"
+        "os.environ['WRT_DEVICE_MC'] = '1'\n"
+        "dev = load_molecule_scene(get_builtin_molecule('caffeine'), show_surface=True,\n"
+        "                          surface_resolution=0.6, device='cpu')\n"
+        "assert dev.stats == ses.stats\n"
+        "vol = load_molecule_scene(get_builtin_molecule('caffeine'), volume_enabled=True,\n"
+        "                          volume_options=dict(spacing=0.8), device='cpu')\n"
+        "r = Renderer(vol.scene, volume=vol.volume.to_device_buffers('cpu'), width=8,\n"
+        "             height=8, device='cpu')\n"
+        "r.settings.volume_enabled = True\n"
+        "r.settings.volume_max_steps = 16\n"
+        "assert r.render(1).mean() > 0 and r.frame_inputs()[0].volume_enabled\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or (m.split('.')[0] == 'webgl_raytracer_tpu' and sys.modules[m] is not None))\n"
         "assert not bad, bad\n"

@@ -166,10 +166,15 @@ def test_renderer_accumulates_running_mean():
 
 @pytest.mark.parametrize("setting", ["volume", "vis_mode", "stack", "brute"])
 def test_unported_paths_raise(setting):
+    """The paths not ported yet raise; the volume march is ported, so a
+    volume frame passes check_supported."""
     change = {"volume": {"volume_enabled": True},
               "vis_mode": {"vis_mode": 1}, "stack": {"tracer": "stack"},
               "brute": {"use_bvh": False}}[setting]
     flags = dataclasses.replace(StaticFlags(), **change)
+    if setting == "volume":
+        PI.check_supported(flags)
+        return
     with pytest.raises(NotImplementedError):
         PI.check_supported(flags)
 

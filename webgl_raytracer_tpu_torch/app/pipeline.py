@@ -5,25 +5,32 @@ option table :496-514).
 
 The port's own copy of webgl_raytracer_tpu/app/pipeline.py. It ties the
 generators together (display style -> sphere/cylinder geometry, cartoon
-mesh with HETATM ball-and-stick, sheet H-bond cylinders) and compiles the
-result into SceneBuffers on `device` (None: cuda:0, raising without a
-GPU). The SES surface and the nitrogen density volume are not ported yet
-and raise NotImplementedError.
+mesh with HETATM ball-and-stick, SES surface with its surface-atom modes,
+sheet H-bond cylinders, nitrogen density volume) and compiles the result
+into SceneBuffers on `device` (None: cuda:0, raising without a GPU). The
+volume stays a host DensityVolume; DensityVolume.to_device_buffers puts it
+on the device for the Renderer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 
 from ..models import molecule_to_geometry, split_by_hetatm
 from ..models.cartoon import build_backbone_cartoon, build_sheet_hbond_cylinders
-from ..models.mesh import TriangleMesh
+from ..models.density import DensityVolume, build_nitrogen_density_volume
+from ..models.elements import element_radii_array
+from ..models.mesh import TriangleMesh, merge_meshes
 from ..models.molecular import Geometry, MolData
+from ..models.surface import compute_ses, ses_to_mesh
 from ..scene.compile import SceneBuffers, compile_scene
 
 DISPLAY_STYLES = ("ball-and-stick", "vdw", "stick", "cartoon")
+
+SES_COLOR = (0.7, 0.75, 0.9)
 
 
 def get_display_options(style: str = "ball-and-stick", atom_scale: float = 1.0,
@@ -45,6 +52,7 @@ class LoadedScene:
     scene: SceneBuffers
     mesh: TriangleMesh
     geometry: Geometry
+    volume: Optional[DensityVolume] = None
     stats: dict = field(default_factory=dict)
 
 
@@ -65,7 +73,12 @@ def load_molecule_scene(
     atom_scale: float = 1.0,
     bond_radius: float = 0.12,
     show_surface: bool = False,
+    probe_radius: float = 1.4,
+    surface_resolution: float = 0.25,
+    smooth_normals: bool = False,
+    surface_atom_mode: str = "hetero",
     volume_enabled: bool = False,
+    volume_options: dict | None = None,
     show_sheet_hbonds: bool = False,
     logger=None,
     cluster_size: int = 128,
@@ -75,16 +88,11 @@ def load_molecule_scene(
 
     * ball-and-stick / vdw / stick -> atom spheres + bond cylinders;
     * cartoon -> backbone mesh; HETATM atoms stay ball-and-stick;
-    * show_sheet_hbonds -> the sheet H-bonds as thin cylinders.
-
-    show_surface (the SES) and volume_enabled (the nitrogen density) are
-    not ported yet (ROADMAP Queue 1 items 6 and 5) and raise."""
-    if show_surface:
-        raise NotImplementedError(
-            "the SES surface is not ported yet (ROADMAP Queue 1 item 6)")
-    if volume_enabled:
-        raise NotImplementedError(
-            "the density volume is not ported yet (ROADMAP Queue 1 item 5)")
+    * show_surface -> SES over the non-HETATM atoms (merged with the
+      cartoon, or replacing the atom geometry unless surface_atom_mode ==
+      'all'); device is also where WRT_DEVICE_MC=1 runs marching cubes;
+    * show_sheet_hbonds -> the sheet H-bonds as thin cylinders;
+    * volume_enabled -> the nitrogen Gaussian density grid (LoadedScene.volume)."""
     log = logger.info if logger else (lambda *_: None)
     opts = get_display_options(display_style, atom_scale, bond_radius)
     geometry = molecule_to_geometry(
@@ -92,7 +100,7 @@ def load_molecule_scene(
         show_bonds=opts["show_bonds"],
     )
 
-    _, het = split_by_hetatm(mol)
+    std, het = split_by_hetatm(mol)
     hetero_opts = (dict(radius_scale=0.4, bond_radius=0.12, show_bonds=True)
                    if display_style == "cartoon"
                    else dict(radius_scale=opts["radius_scale"],
@@ -111,11 +119,45 @@ def load_molecule_scene(
         log(f"Cartoon built: {mesh.num_triangles} triangles")
         display_geometry = hetero_geometry
 
+    if show_surface and mol.num_atoms > 0:
+        surface_mol = std if std.num_atoms > 0 else None
+        if surface_mol is None:
+            if logger:
+                logger.warn("No non-HETATM atoms available for surface; rendering atoms only.")
+        else:
+            log(f"Computing SES surface (probe={probe_radius}A, "
+                f"resolution={surface_resolution}A)...")
+            radii = element_radii_array(surface_mol.elements)
+            v, n, idx = compute_ses(
+                surface_mol.positions, radii, probe_radius=probe_radius,
+                resolution=surface_resolution, smooth_normals=smooth_normals,
+                device=device,
+            )
+            stats["ses_triangles"] = int(idx.shape[0])
+            log(f"SES completed: {idx.shape[0]} triangles")
+            if idx.shape[0] > 0:
+                surface_mesh = ses_to_mesh(v, n, idx, SES_COLOR)
+                if display_style == "cartoon":
+                    mesh = merge_meshes(mesh, surface_mesh)
+                else:
+                    mesh = surface_mesh
+                if surface_atom_mode == "all":
+                    display_geometry = geometry
+                else:
+                    display_geometry = hetero_geometry
+            elif logger:
+                logger.warn("SES computation produced no surface")
+
     if show_sheet_hbonds:
         p1, p2, radii, colors = build_sheet_hbond_cylinders(mol)
         if p1.shape[0]:
             display_geometry = _concat_geometry(display_geometry, p1, p2, radii, colors)
             log(f"Debug: {p1.shape[0]} sheet H-bonds")
+
+    volume = None
+    if volume_enabled:
+        volume = build_nitrogen_density_volume(mol, **(volume_options or {}))
+        log(f"Volume: {volume.dims} voxels from {volume.nitrogen_count} N atoms")
 
     log(f"Loading {display_geometry.num_spheres} atoms, "
         f"{display_geometry.num_cylinders} bonds, {mesh.num_triangles} triangles")
@@ -135,7 +177,8 @@ def load_molecule_scene(
         triangles=mesh.num_triangles,
         clusters=scene.num_clusters,
     )
-    return LoadedScene(scene=scene, mesh=mesh, geometry=display_geometry, stats=stats)
+    return LoadedScene(scene=scene, mesh=mesh, geometry=display_geometry,
+                       volume=volume, stats=stats)
 
 
 def load_test_primitives(cluster_size: int = 128, device=None) -> LoadedScene:

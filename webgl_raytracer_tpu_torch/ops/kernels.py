@@ -26,14 +26,14 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
            "trace_closest_perray.cu", "trace_any_perray.cu",
-           "trace_closest_attrs.cu", "sweep_sol.cu")
+           "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu")
 HEADERS = ("intersect.cuh",)
 
 # Kernel launches by kernel name; only the wrappers' CUDA launch sites add
-# to them (ops/trace.py, tools/sweep_sol.py).
+# to them (ops/trace.py, ops/volume.py, tools/sweep_sol.py).
 launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
                           "trace_closest_perray", "trace_any_perray",
-                          "trace_closest_attrs", "sweep_sol"), 0)
+                          "trace_closest_attrs", "sweep_sol", "volume_march"), 0)
 
 # -fmad=false keeps every a*b+c rounded twice, as the plain PyTorch
 # versions round it, so the kernels' outputs match them bit for bit. No
@@ -138,6 +138,8 @@ def library() -> ctypes.CDLL:
                                             ptr, ptr, ptr, ptr]
     lib.wrt_sweep_sol.restype = i32
     lib.wrt_sweep_sol.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+    lib.wrt_volume_march.restype = i32
+    lib.wrt_volume_march.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
     return lib
 
 

@@ -23,7 +23,7 @@ from the accumulator as it stood at the block's start: the port's form of
 the JAX package's lax.cond fallback, with the same frames.
 
 The graph bakes in what the frame reads on the host while it is traced:
-the StaticFlags, the size, the scene and environment, impl and the
+the StaticFlags, the size, the scene, environment and volume, impl and the
 transport knobs (integrator.TRANSPORT_KNOBS); a change of any of them
 recaptures. The uniforms are one device buffer (config.uniforms_view)
 refreshed in place, so a camera move or a uniform setting needs none.
@@ -86,7 +86,7 @@ class _Captured:
     """A captured frame and what it was captured for."""
     graph: torch.cuda.CUDAGraph
     key: tuple
-    held: tuple          # the scene and env the key names by id, kept alive
+    held: tuple          # the scene, env and volume the key names by id, kept alive
     launches: dict       # kernel launches one replay makes, by name
 
 
@@ -96,6 +96,8 @@ class Renderer:
 
     device: None means cuda:0 (raises without a GPU); "cpu" renders with
     the plain traces. env: EnvBuffers (env/) or None for ambient light only.
+    volume: VolumeBuffers (models/density.DensityVolume.to_device_buffers)
+    or None; settings.volume_enabled turns its march on.
     impl: None (kernels on CUDA tensors, plain versions on CPU ones) or
     "plain" to force the plain traces on a CUDA device (comparison runs,
     eager).
@@ -106,8 +108,8 @@ class Renderer:
     """
 
     def __init__(self, scene: SceneBuffers, settings: RenderSettings | None = None,
-                 env=None, width: int = 800, height: int = 600, device=None,
-                 impl: str | None = None, auto_fit: bool = True):
+                 env=None, volume=None, width: int = 800, height: int = 600,
+                 device=None, impl: str | None = None, auto_fit: bool = True):
         self.settings = settings or RenderSettings()
         self.device = resolve_device(device)
         self.impl = impl
@@ -128,7 +130,7 @@ class Renderer:
         self._totals = None      # int64[3]: the block's overflows, path and occlusion rays
         self.env = None
         self.set_env(env)
-        self.set_scene(scene, auto_fit=auto_fit)
+        self.set_scene(scene, volume=volume, auto_fit=auto_fit)
 
     # -- state management ---------------------------------------------------
 
@@ -145,10 +147,14 @@ class Renderer:
         self._release_graph()
         self.reset_accumulation()
 
-    def set_scene(self, scene: SceneBuffers, auto_fit: bool = True) -> None:
-        """Swap the compiled scene: bounds, scene scale, ray bias and the
-        camera fit are recomputed; accumulation restarts."""
+    def set_scene(self, scene: SceneBuffers, volume=None, auto_fit: bool = True) -> None:
+        """Swap the compiled scene and its volume (VolumeBuffers or None):
+        bounds, scene scale, ray bias and the camera fit are recomputed;
+        accumulation restarts."""
         self.scene = scene if scene.device == self.device else scene.to(self.device)
+        if volume is not None and volume.device != self.device:
+            volume = volume.to(self.device)
+        self.volume = volume
         self.bounds = scene_bounds(self.scene)
         self.scene_scale = scene_scale(self.scene)
         # Scale-derived ray bias.
@@ -197,6 +203,7 @@ class Renderer:
         basis = self.camera.basis()
         flags, uniforms = split_settings(s, basis, light_dirs_for_camera(s.lights, basis),
                                          has_env=self.env is not None,
+                                         has_volume=self.volume is not None,
                                          clip=self.active_clip_plane(basis),
                                          device=self.device)
         px, py = self._pixel_grids()
@@ -250,7 +257,8 @@ class Renderer:
         s = self.settings
         basis = self.camera.basis()
         clip = self.active_clip_plane(basis)
-        flags = static_flags(s, has_env=self.env is not None, clip=clip)
+        flags = static_flags(s, has_env=self.env is not None,
+                             has_volume=self.volume is not None, clip=clip)
         values = uniform_values(s, basis, light_dirs_for_camera(s.lights, basis), clip)
         if self._uflat is None:
             self._uflat = torch.empty(UNIFORM_SIZE, dtype=torch.float32, device=self.device)
@@ -272,7 +280,7 @@ class Renderer:
         add to the block's totals. No host read on the kernels' path."""
         color, rays, overflow = render_batch_flagged(
             self.scene, flags, self._u, self._px, self._py, self._fi, env=self.env,
-            impl=self.impl)
+            impl=self.impl, vol=self.volume)
         running_mean(self._accum, color, self._fi)
         self._totals.add_(torch.stack([overflow, rays[0], rays[1]]))
         self._fi.add_(1)
@@ -284,13 +292,13 @@ class Renderer:
 
     def _captured(self, flags) -> _Captured:
         """The captured frame for these flags and the current scene, env,
-        size, impl and transport knobs: the one held, or a new capture.
+        volume, size, impl and transport knobs: the one held, or a new capture.
         A new capture first runs the frame once on a side stream (it builds
         the kernels and the scene's operands, which capture cannot), then
         restores the accumulator and records one frame; the launch
         counters keep the warm-up's launches and learn the replay's."""
-        key = (flags, self.width, self.height, id(self.scene), id(self.env), self.impl,
-               tuple(os.environ.get(k) for k in TRANSPORT_KNOBS))
+        key = (flags, self.width, self.height, id(self.scene), id(self.env),
+               id(self.volume), self.impl, tuple(os.environ.get(k) for k in TRANSPORT_KNOBS))
         if self._graph is not None and self._graph.key == key:
             return self._graph
         self._release_graph()
@@ -310,7 +318,7 @@ class Renderer:
         per_replay = {name: launches[name] - n for name, n in before.items()}
         launches.update(before)
         self.stats["captures"] += 1
-        self._graph = _Captured(graph, key, (self.scene, self.env), per_replay)
+        self._graph = _Captured(graph, key, (self.scene, self.env, self.volume), per_replay)
         return self._graph
 
     def render_frames(self, count: int) -> bool:
@@ -355,7 +363,8 @@ class Renderer:
         for f in range(start, start + count):
             self._fi.fill_(f)
             color, (p, o) = render_batch_stats(self.scene, flags, self._u, self._px,
-                                               self._py, f, env=self.env, impl=self.impl)
+                                               self._py, f, env=self.env, impl=self.impl,
+                                               vol=self.volume)
             running_mean(self._accum, color, self._fi)
             paths, occl = paths + int(p), occl + int(o)
         self.stats["overflowed_blocks"] += 1

@@ -4,11 +4,12 @@ Counterpart of webgl_raytracer_tpu/render/integrator.py. One bounce step
 (_make_bounce_step) runs over a flat batch of rays, dead paths masked out
 of traversal and shading. Per bounce:
 
-  closest hit (ops/trace kernel) -> environment / ambient on miss with
-  MIS -> surface reconstruction by primitive type -> glass/translucent
-  stochastic transmission -> 3 cone lights with the fused 3-direction
-  shadow fan and MIS -> env NEE (CDF-sampled direction, occlusion, MIS)
-  -> GGX/cosine BRDF sample -> Russian roulette.
+  closest hit (ops/trace kernel) -> volume march (ops/volume kernel) ->
+  environment / ambient on miss with MIS -> surface reconstruction by
+  primitive type -> glass/translucent stochastic transmission -> 3 cone
+  lights with the fused 3-direction shadow fan and MIS -> env NEE
+  (CDF-sampled direction, occlusion, MIS) -> GGX/cosine BRDF sample ->
+  Russian roulette.
 
 Per-ray vectors are component triples of [B] tensors (ops/vec3.py) and
 RNG draws stay in the reference's order, so a frame matches the JAX
@@ -25,7 +26,8 @@ the JAX package does:
                 With WRT_ATTRS=1 (_use_attrs) the traces return the
                 winner's attribute row (ops/trace.trace_closest_attrs) and
                 the rows ride through the permutation instead of the slot;
-  binned        (_binned_transport, the default where the kernels run)
+  binned        (_binned_transport, the default where the kernels run;
+                not for volume frames)
                 primary hits packed live-first into a buffer of n/12
                 lanes, the bounces run over the whole buffer (dead lanes at
                 its tail), re-packed by a coherence key (direction octant x
@@ -39,9 +41,9 @@ Each transport is a permutation of the same per-lane computation, so all
 give the same frame bit for bit (per-ray results do not depend on
 batching).
 
-Not ported yet, and raising NotImplementedError when asked for: the
-volume march, visualisation modes 1-3, the stack tracer and the
-brute-force (use_bvh=False) sweep.
+Not ported yet, and raising NotImplementedError when asked for:
+visualisation modes 1-3, the stack tracer and the brute-force
+(use_bvh=False) sweep.
 
 No host reads. Where the JAX package skips work with
 `lax.cond(jnp.any(mask))`, this module runs the masked work anyway: a
@@ -69,6 +71,7 @@ from ..ops import vec3 as V
 from ..ops.envmap import env_pdf_v3, sample_env_direction_v3, sample_env_radiance_v3
 from ..ops.rng import init_seed, rand, rand2
 from ..ops.trace import attr_slot, kernel_supported
+from ..ops.volume import march_volume
 from ..ops.wavefront import (HitRecord, _finalize_hit, wf_trace_any3_v3,
                              wf_trace_any_v3, wf_trace_closest_v3)
 from ..scene.bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
@@ -82,8 +85,6 @@ THROUGHPUT_CLAMP = 10.0
 
 def check_supported(flags) -> None:
     """Raise for settings whose code paths are not ported yet."""
-    if flags.volume_enabled:
-        raise NotImplementedError("the volume march is not ported yet")
     if flags.vis_mode != 0:
         raise NotImplementedError(
             f"visualisation mode {flags.vis_mode} is not ported yet")
@@ -246,13 +247,16 @@ class PathState:
     noccl: torch.Tensor       # any-hit occlusion candidates traced
 
 
-def _make_bounce_step(scene, env, flags, u, n, impl=None):
+def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
     """Factory for ONE path-trace bounce over a flat [n] ray batch:
     bounce_body(bounce: int, state, rec=None, attrs=None, use_attrs=False)
-    -> state. env: EnvBuffers when flags.use_env."""
+    -> state. env: EnvBuffers when flags.use_env; vol: VolumeBuffers
+    (ops/volume.py) when flags.volume_enabled."""
     check_supported(flags)
     if flags.use_env and env is None:
         raise ValueError("flags.use_env is set but no environment was given")
+    if flags.volume_enabled and vol is None:
+        raise ValueError("flags.volume_enabled is set but no volume was given")
     bias = torch.clamp_min(u.ray_bias, 1e-4)
     clip = _clip_tuple(flags, u)
     ambient = V.splat(u.ambient_color)
@@ -273,6 +277,16 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None):
             if use_attrs:
                 rec, attrs = rec
         hit = rec.prim_type >= 0
+
+        # --- volume march up to the closest hit ---
+        if flags.volume_enabled:
+            vol_rad, st.throughput = march_volume(
+                vol, st.origin, st.direction, torch.where(hit, rec.t, BIG), u.t_min,
+                u.volume_color, u.volume_density, u.volume_opacity, u.volume_step,
+                u.volume_threshold, st.throughput, st.alive, flags.volume_max_steps,
+                impl=impl)
+            for c in range(3):
+                st.radiance[c].add_(vol_rad[c])
 
         # --- environment / ambient on miss, MIS against BRDF sampling ---
         env_contrib = V.scale(ambient, u.ambient_intensity)
@@ -546,12 +560,13 @@ def _initial_state(seed, origin, direction, device) -> PathState:
 
 
 def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None,
-                first_rec=None, first_attrs=None):
+                first_rec=None, first_attrs=None, vol=None):
     """Full path trace for a flat ray batch of component-triple rays.
     Returns (radiance triple, seed, (path_rays, occl_rays)): path_rays
     counts closest-hit extension segments (camera + bounces), occl_rays
     the any-hit shadow candidates (cone lights and env NEE), as 0-d int64
-    tensors. env: EnvBuffers, required when flags.use_env.
+    tensors. env: EnvBuffers, required when flags.use_env; vol:
+    VolumeBuffers, required when flags.volume_enabled.
 
     first_rec: the batch's bounce-0 hits, traced and finalised by the
     caller (a chunk of the permuted transport); first_attrs their
@@ -560,7 +575,7 @@ def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None,
     n = origin0[0].shape[0]
     use_attrs = (first_attrs is not None if first_rec is not None
                  else _use_attrs(scene))
-    bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl)
+    bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl, vol=vol)
     st = _initial_state(seed0, origin0, dir0, origin0[0].device)
     for bounce in range(flags.max_bounces):
         if bounce == 0:
@@ -668,7 +683,7 @@ def _tile_permutation(hit, g):
 
 
 def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
-                  clip, chunks, impl=None):
+                  clip, chunks, impl=None, vol=None):
     """The block-permuted chunked transport: rays move hit-first in
     _PERM_BLOCK blocks, then each chunk runs trace_paths from its bounce-0
     record, rebuilt per chunk from (t, slot), or from (t, attrs) on the
@@ -709,7 +724,8 @@ def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
                                   row=attrs_c[:, :12])
         radiance, _, (nr, no) = trace_paths(scene, flags, u, origin_c, direction_c,
                                             seed_c, env=env, impl=impl,
-                                            first_rec=rec_c, first_attrs=attrs_c)
+                                            first_rec=rec_c, first_attrs=attrs_c,
+                                            vol=vol)
         colors.append(V.to_array(radiance))
         nrays, noccl = nrays + nr, noccl + no
     colors = torch.cat(colors)
@@ -723,9 +739,10 @@ def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
 def _use_binned(scene, flags, n) -> bool:
     """The binned transport: the default wherever the kernels run
     (WRT_BINNED=1 forces it, =0 turns it off), for batches of whole
-    1024-ray blocks and at least one bounce."""
+    1024-ray blocks and at least one bounce; never for volume frames,
+    which march from every lane's camera ray (the JAX package's rule)."""
     knob = os.environ.get("WRT_BINNED")
-    if knob == "0" or n % 1024 != 0 or flags.max_bounces < 1:
+    if knob == "0" or flags.volume_enabled or n % 1024 != 0 or flags.max_bounces < 1:
         return False
     return knob == "1" or kernel_supported(scene)
 
@@ -814,7 +831,7 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
 
 
 def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=None,
-                     binned=True):
+                     binned=True, vol=None):
     """One path-traced sample for every pixel, through the transport the
     JAX package's _sample_radiance picks: the whole batch for one chunk;
     else a full-width primary trace, then the permuted transport with
@@ -830,7 +847,7 @@ def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=Non
     chunks = _chunk_count(n)
     if chunks == 1:
         radiance, _, rays = trace_paths(scene, flags, u, origin, direction, seed,
-                                        env=env, impl=impl)
+                                        env=env, impl=impl, vol=vol)
         return radiance, rays, no_overflow
     clip = _clip_tuple(flags, u)
     attrs0 = None
@@ -844,19 +861,19 @@ def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=Non
         return _binned_transport(scene, env, flags, u, seed, origin, direction,
                                  rec0, clip, impl=impl)
     radiance, rays = _run_permuted(scene, env, flags, u, seed, origin, direction,
-                                   rec0, attrs0, clip, chunks, impl=impl)
+                                   rec0, attrs0, clip, chunks, impl=impl, vol=vol)
     return radiance, rays, no_overflow
 
 
 def render_batch_flagged(scene, flags, u, px, py, frame_index, env=None, impl=None,
-                         binned=True):
+                         binned=True, vol=None):
     """One progressive sample set per pixel with no host read on the
     kernels' path: (colour f32[B,3], (path rays, occlusion rays), overflow),
     overflow a 0-d int64 tensor counting the samples whose binned buffer
     overflowed. Where it is not 0 the colour and counts are not the
     frame's: redo the frame with binned=False. Exposure is applied before
     accumulation. frame_index: an int or an integer tensor (a captured
-    frame's device counter)."""
+    frame's device counter). vol: VolumeBuffers for a volume frame."""
     device = px.device
     total = V.full(px.shape, 0.0, device=device)
     rays = (torch.zeros((), dtype=torch.int64, device=device),
@@ -864,27 +881,29 @@ def render_batch_flagged(scene, flags, u, px, py, frame_index, env=None, impl=No
     overflow = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(flags.spp):
         radiance, nrays, over = _sample_radiance(scene, flags, u, px, py, frame_index, s,
-                                                 env=env, impl=impl, binned=binned)
+                                                 env=env, impl=impl, binned=binned,
+                                                 vol=vol)
         total = V.add(total, radiance)
         rays = (rays[0] + nrays[0], rays[1] + nrays[1])
         overflow = overflow + over
     return V.to_array(V.scale(total, u.exposure / flags.spp)), rays, overflow
 
 
-def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None):
+def render_batch_stats(scene, flags, u, px, py, frame_index, env=None, impl=None,
+                       vol=None):
     """One progressive sample set per pixel -> (colour f32[B,3], (path
     rays, occlusion rays)). Reads the binned transport's overflow flag
     once: a frame that overflowed is redone through the permuted
     transport, the JAX package's lax.cond fallback."""
     color, rays, overflow = render_batch_flagged(scene, flags, u, px, py, frame_index,
-                                                 env=env, impl=impl)
+                                                 env=env, impl=impl, vol=vol)
     if int(overflow):
         color, rays, _ = render_batch_flagged(scene, flags, u, px, py, frame_index,
-                                              env=env, impl=impl, binned=False)
+                                              env=env, impl=impl, binned=False, vol=vol)
     return color, rays
 
 
-def render_batch(scene, flags, u, px, py, frame_index, env=None, impl=None):
+def render_batch(scene, flags, u, px, py, frame_index, env=None, impl=None, vol=None):
     """One progressive sample set per pixel -> colour f32[B,3]."""
     return render_batch_stats(scene, flags, u, px, py, frame_index, env=env,
-                              impl=impl)[0]
+                              impl=impl, vol=vol)[0]

@@ -35,8 +35,8 @@ the numpy trace's rows and t bit for bit; shading stays in numpy. It is
 the oracle's own dense formulation, independent of the port's cluster
 traversal. There is no CPU form of it: torch's CPU f32 sqrt is not
 correctly rounded on every machine, so on the CPU the oracle is numpy.
-The density-volume march is not ported with the volume path (ROADMAP
-Queue 1 item 5): a volume frame raises.
+A volume frame marches the density grid in numpy (_march_volume, the
+shader's in-loop march with its tCurrent > tExit break).
 """
 
 from __future__ import annotations
@@ -614,6 +614,105 @@ def env_pdf(env: _NpEnv, d):
 
 
 # --------------------------------------------------------------------------
+# Volume march (webgl.js:1191-1221), trilinear 3D sample (:417-421).
+
+class _NpVol:
+    def __init__(self, vol):
+        self.data = _host(vol.data).astype(np.float32)
+        self.vmin = _host(vol.vmin).astype(np.float32)
+        self.vmax = _host(vol.vmax).astype(np.float32)
+        self.max_value = float(_host(vol.max_value))
+        self.nx, self.ny, self.nz = int(vol.nx), int(vol.ny), int(vol.nz)
+
+
+def _sample_volume(vol: _NpVol, px, py, pz):
+    inv = F(1.0) / np.maximum(vol.vmax - vol.vmin, F(1e-12))
+    u = np.clip((px - vol.vmin[0]) * inv[0], 0.0, 1.0)
+    v = np.clip((py - vol.vmin[1]) * inv[1], 0.0, 1.0)
+    w = np.clip((pz - vol.vmin[2]) * inv[2], 0.0, 1.0)
+    dims = (vol.nx, vol.ny, vol.nz)
+    xyz = [u * F(dims[0]) - F(0.5), v * F(dims[1]) - F(0.5), w * F(dims[2]) - F(0.5)]
+    i0 = [np.clip(np.floor(c).astype(np.int32), 0, dims[k] - 1) for k, c in enumerate(xyz)]
+    i1 = [np.clip(i0[k] + 1, 0, dims[k] - 1) for k in range(3)]
+    f = [np.clip(c - np.floor(c), 0.0, 1.0).astype(np.float32) for c in xyz]
+    d = vol.data
+    c000 = d[i0[2], i0[1], i0[0]]
+    c100 = d[i0[2], i0[1], i1[0]]
+    c010 = d[i0[2], i1[1], i0[0]]
+    c110 = d[i0[2], i1[1], i1[0]]
+    c001 = d[i1[2], i0[1], i0[0]]
+    c101 = d[i1[2], i0[1], i1[0]]
+    c011 = d[i1[2], i1[1], i0[0]]
+    c111 = d[i1[2], i1[1], i1[0]]
+    c00 = c000 * (1 - f[0]) + c100 * f[0]
+    c10 = c010 * (1 - f[0]) + c110 * f[0]
+    c01 = c001 * (1 - f[0]) + c101 * f[0]
+    c11 = c011 * (1 - f[0]) + c111 * f[0]
+    c0 = c00 * (1 - f[1]) + c10 * f[1]
+    c1 = c01 * (1 - f[1]) + c11 * f[1]
+    return c0 * (1 - f[2]) + c1 * f[2]
+
+
+def _march_volume(vol, o, d, t_surface, u, flags, throughput, radiance, alive):
+    """In-loop volume march; returns new (radiance, throughput) triples.
+    Follows the GLSL exactly, including the tCurrent > tExit break and the
+    1e-3 throughput kill."""
+    tmin = F(float(u.t_min))
+    # AABB slab range (webgl.js:316-341).
+    tn = np.full_like(o[0], -BIG)
+    tf = np.full_like(o[0], BIG)
+    ok = np.ones(o[0].shape, bool)
+    for axis in range(3):
+        da = d[axis]
+        oa = o[axis]
+        lo, hi = F(vol.vmin[axis]), F(vol.vmax[axis])
+        parallel = np.abs(da) < F(1e-8)
+        inv = F(1.0) / np.where(parallel, F(1.0), da)
+        t1 = (lo - oa) * inv
+        t2 = (hi - oa) * inv
+        tn = np.maximum(tn, np.where(parallel, -BIG, np.minimum(t1, t2)))
+        tf = np.minimum(tf, np.where(parallel, BIG, np.maximum(t1, t2)))
+        ok &= ~parallel | ((oa >= lo) & (oa <= hi))
+    hit_box = ok & (tf >= np.maximum(tn, F(0.0)))
+    t_enter = np.maximum(np.maximum(tn, F(0.0)), tmin)
+    t_exit = np.minimum(tf, t_surface)
+    step = F(float(u.volume_step))
+    run = alive & hit_box & (t_exit > t_enter) & (step > 0.0)
+    if not np.any(run):
+        return radiance, throughput
+    inv_max = F(1.0) / max(vol.max_value, 1e-6)
+    tp = [c.copy() for c in throughput]
+    rad = [c.copy() for c in radiance]
+    t_cur = t_enter.copy()
+    live = run.copy()
+    for _ in range(int(flags.volume_max_steps)):
+        live = live & (t_cur <= t_exit)
+        if not np.any(live):
+            break
+        dt = np.minimum(step, t_exit - t_cur)
+        px_ = o[0] + d[0] * t_cur
+        py_ = o[1] + d[1] * t_cur
+        pz_ = o[2] + d[2] * t_cur
+        density = _sample_volume(vol, px_, py_, pz_) * inv_max
+        density = np.maximum(F(0.0), density - F(float(u.volume_threshold)))
+        pos_d = live & (density > 0.0)
+        alpha = F(1.0) - np.exp(-density * F(float(u.volume_density)) * dt)
+        alpha = np.clip(alpha * F(float(u.volume_opacity)), 0.0, 1.0)
+        alpha = np.where(pos_d, alpha, F(0.0))
+        vc = np.asarray(u.volume_color, np.float32)
+        for c in range(3):
+            rad[c] = rad[c] + tp[c] * F(vc[c]) * alpha
+            tp[c] = tp[c] * (F(1.0) - alpha)
+        mx = np.maximum(tp[0], np.maximum(tp[1], tp[2]))
+        dead = pos_d & (mx < F(1e-3))
+        for c in range(3):
+            tp[c] = np.where(dead, F(0.0), tp[c])
+        live = live & ~dead
+        t_cur = t_cur + step
+    return (rad[0], rad[1], rad[2]), (tp[0], tp[1], tp[2])
+
+
+# --------------------------------------------------------------------------
 # The transport (webgl.js:1173-1441 tracePath + :1508-1549 main).
 
 # _NpScene per (scene object, trace device): render_batch_oracle is called
@@ -645,44 +744,46 @@ def _host_uniforms(u) -> SimpleNamespace:
     return SimpleNamespace(**{f.name: _host(getattr(u, f.name)) for f in fields(u)})
 
 
-def render_batch_oracle(scene, env, flags, u, px, py, frame_index, trace_device=None):
+def render_batch_oracle(scene, env, flags, u, px, py, frame_index, trace_device=None,
+                        vol=None):
     """One progressive frame: the exact reference estimator, per pixel.
 
     Mirrors render/integrator.render_batch's inputs (scene, env: EnvBuffers
-    or None, flags, uniforms, pixel coordinates) and returns [N,3] f32
-    numpy colour with exposure applied (webgl.js:1520-1549). trace_device:
-    None traces with numpy; a CUDA device traces on that card.
+    or None, flags, uniforms, pixel coordinates, vol: VolumeBuffers or
+    None) and returns [N,3] f32 numpy colour with exposure applied
+    (webgl.js:1520-1549). trace_device: None traces with numpy; a CUDA
+    device traces on that card.
     """
-    if flags.volume_enabled:
-        raise NotImplementedError(
-            "the density volume is not ported yet (ROADMAP Queue 1 item 5)")
+    if flags.volume_enabled and vol is None:
+        raise ValueError("flags.volume_enabled is set but no volume was given")
     sc = _np_scene(scene, trace_device)
     np_env = _NpEnv(env) if (flags.use_env and env is not None) else None
+    np_vol = _NpVol(vol) if flags.volume_enabled else None
     u = _host_uniforms(u)
     px = _host(px)
     py = _host(py)
     n = px.shape[0]
     total = [np.zeros(n, np.float32) for _ in range(3)]
     for s in range(flags.spp):
-        r = _trace_sample(sc, np_env, flags, u, px, py, frame_index, s)
+        r = _trace_sample(sc, np_env, np_vol, flags, u, px, py, frame_index, s)
         for c in range(3):
             total[c] += r[c]
     inv = F(1.0 / flags.spp) * F(float(u.exposure))
     return np.stack([total[0] * inv, total[1] * inv, total[2] * inv], axis=-1)
 
 
-def _trace_sample(sc, env, flags, u, px, py, frame_index, s):
+def _trace_sample(sc, env, vol, flags, u, px, py, frame_index, s):
     # Dead/masked lanes carry 1e20 positions whose arithmetic overflows
     # harmlessly (results fully masked) — suppress the noise for the whole
     # per-sample transport.
     _err = np.seterr(over="ignore", invalid="ignore")
     try:
-        return _trace_sample_impl(sc, env, flags, u, px, py, frame_index, s)
+        return _trace_sample_impl(sc, env, vol, flags, u, px, py, frame_index, s)
     finally:
         np.seterr(**_err)
 
 
-def _trace_sample_impl(sc, env, flags, u, px, py, frame_index, s):
+def _trace_sample_impl(sc, env, vol, flags, u, px, py, frame_index, s):
     n = px.shape[0]
     f32u = lambda name: F(float(getattr(u, name)))  # noqa: E731
     res = np.asarray(u.resolution, np.float32)
@@ -742,6 +843,11 @@ def _trace_sample_impl(sc, env, flags, u, px, py, frame_index, s):
             break
         t, row = trace_closest(sc, o, d, t_min, clip, mask=alive)
         hit = row >= 0
+        t_surface = np.where(hit, t, BIG)
+
+        if vol is not None:
+            radiance, throughput = _march_volume(
+                vol, o, d, t_surface, u, flags, throughput, radiance, alive)
 
         # Miss -> environment + ambient, with MIS after bounce 0 (:1223-1235).
         env_c = [np.full(n, ambient[c], np.float32) for c in range(3)]

@@ -12,10 +12,9 @@ arithmetic and the RMSE measures arithmetic fidelity, not Monte-Carlo
 variance. Glass rows (modes 2/3) draw divergently by design and compare
 converged images.
 
-Rows: the 11 rows of PARITY_RMSE.json whose pieces the port has, with the
-same scenes, settings, sizes and frames (128x128; 64 frames, 256 for
-glass). caffeine-volume and caffeine-ses-surface-glass wait for the
-volume and SES slices (ROADMAP Queue 1 items 5 and 6).
+Rows: the 13 rows of PARITY_RMSE.json, with the same scenes, settings,
+sizes and frames (128x128; 64 frames, 256 for glass), the nitrogen
+density volume and the SES surface included.
 
 The gate is the frozen one (docs/ARCHITECTURE.md, "Parity gate"):
 stream-exact rows pass at raw RMSE <= 1e-3, or at flip-excluded RMSE <=
@@ -63,12 +62,14 @@ ORACLE_CHUNK = 4096        # pixels a render_batch_oracle call
 class Row:
     """One parity row: its scene loader (device -> LoadedScene), the
     environment ("sky", "sun", "kloof" or None), settings overrides, and
-    whether a clip plane is on and the row is a glass one."""
+    whether a clip plane is on, the loaded density volume is marched and
+    the row is a glass one."""
     name: str
     load: Callable
     env: str | None = None
     overrides: dict = field(default_factory=dict)
     clip: bool = False
+    volume: bool = False
     glass: bool = False
 
 
@@ -97,10 +98,19 @@ def rows() -> list[Row]:
         Row("caffeine-dof", molecule("caffeine"),
             overrides=dict(material_mode="metallic", dof_enabled=True, dof_aperture=0.05)),
         Row("caffeine-clip", molecule("caffeine"), overrides=metal, clip=True),
+        Row("caffeine-volume", molecule("caffeine", volume_enabled=True),
+            overrides=dict(material_mode="metallic", volume_enabled=True,
+                           volume_density=1.5), volume=True),
         Row("aspirin-stick", molecule("aspirin", display_style="stick"), overrides=metal),
         Row("tstp-cartoon", protein_cartoon, overrides=dict(material_mode="matte")),
         Row("spheres1000", lambda device: load_random_spheres(1000, device=device),
             overrides=metal),
+        # Glass modes draw divergently between the oracle and the renderer,
+        # so these compare converged images.
+        Row("caffeine-ses-surface-glass",
+            molecule("caffeine", show_surface=True, surface_resolution=0.5),
+            overrides=dict(material_mode="surface-glass", surface_opacity=0.25,
+                           surface_transmission=0.5), glass=True),
         Row("glucose-translucent", molecule("glucose"),
             overrides=dict(material_mode="translucent-plastic", surface_opacity=0.3),
             glass=True),
@@ -119,10 +129,11 @@ def load_env(kind, device):
     return envc.load_hdr_file(ENV_FILES[kind])
 
 
-def make_renderer(row: Row, scene, env, size, device, impl=None):
+def make_renderer(row: Row, scene, env, size, device, impl=None, volume=None):
     from ..render import Renderer
 
-    r = Renderer(scene, width=size, height=size, env=env, device=device, impl=impl)
+    r = Renderer(scene, width=size, height=size, env=env, volume=volume, device=device,
+                 impl=impl)
     r.settings.tone_map = "linear"
     for k, v in row.overrides.items():
         setattr(r.settings, k, v)
@@ -144,7 +155,7 @@ def render_port(r, frames) -> np.ndarray:
 
 def render_oracle(r, frames, trace_device=None, cache=None) -> np.ndarray:
     """The oracle's accumulation of `frames` frames on the Renderer's
-    scene, environment, pixels, flags and uniforms, [N,3] in ray order;
+    scene, environment, volume, pixels, flags and uniforms, [N,3] in ray order;
     read from or written to the file `cache` when given."""
     from ..render.reference_oracle import render_batch_oracle
 
@@ -156,7 +167,7 @@ def render_oracle(r, frames, trace_device=None, cache=None) -> np.ndarray:
     for f in range(frames):
         co = np.concatenate([
             render_batch_oracle(r.scene, r.env, flags, u, px[i:i + ORACLE_CHUNK],
-                                py[i:i + ORACLE_CHUNK], f, trace_device)
+                                py[i:i + ORACLE_CHUNK], f, trace_device, vol=r.volume)
             for i in range(0, px.shape[0], ORACLE_CHUNK)])
         acc = co if f == 0 else (acc * np.float32(f) + co) / np.float32(f + 1)
     if cache:
@@ -205,8 +216,9 @@ def run_row(row: Row, size: int, frames: int, device, trace_device=None,
     t0 = time.perf_counter()
     loaded = row.load(device)
     env = load_env(row.env, device)
+    volume = loaded.volume.to_device_buffers(device) if row.volume else None
 
-    r = make_renderer(row, loaded.scene, env, size, device)
+    r = make_renderer(row, loaded.scene, env, size, device, volume=volume)
     acc_dev = render_port(r, frames)
     t1 = time.perf_counter()
     cache = (os.path.join(cache_dir, f"{row.name}_{size}x{size}_f{frames}.npz")
@@ -218,7 +230,8 @@ def run_row(row: Row, size: int, frames: int, device, trace_device=None,
            "resolution": f"{size}x{size}", "frames": frames,
            **judge(acc_dev, acc_ora, row.glass)}
     if out.pop("needs_control"):
-        alt = make_renderer(row, loaded.scene, env, size, device, impl="plain")
+        alt = make_renderer(row, loaded.scene, env, size, device, impl="plain",
+                            volume=volume)
         ctl = control(acc_dev, render_port(alt, frames), acc_ora)
         out["device_arithmetic_control"] = ctl
         out["pass"] = (out["rmse_excl_decision_flips"] <= EXACT_RMSE
@@ -290,8 +303,6 @@ def main(argv=None) -> int:
                   "oracle_trace says whether a row's traces ran in numpy or on the card",
         "renderer": "webgl_raytracer_tpu_torch Renderer, CUDA kernels",
         "device": card,
-        "waiting": {"caffeine-volume": "ROADMAP Queue 1 item 5 (volume)",
-                    "caffeine-ses-surface-glass": "ROADMAP Queue 1 item 6 (SES surface)"},
         "filter": {"only": args.only, "skip": args.skip,
                    "merged_into_existing": filtered and len(merged) > len(results)},
         "all_pass": all(r["pass"] for r in merged),
