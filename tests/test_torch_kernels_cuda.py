@@ -797,3 +797,141 @@ def test_set_scene_with_a_new_volume_recaptures(device, monkeypatch):
     acc, paths, occl = _eager_frames(r, 2)
     assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl)
     assert not torch.equal(r._accum, first)
+
+
+# The cost forms (ops/trace.py, "Counts"): the kernels compiled with their
+# counter, held to the plain versions' counts exactly.
+
+COST_SCENES = {12: 1000, 128: 10000, 1976: 150000}    # K -> bench.py's sphere count
+_COST_CACHE = {}
+
+
+def _cost_scene(k, device):
+    if k not in _COST_CACHE:
+        scene = compile_scene(random_sphere_geometry(COST_SCENES[k]), device=device)
+        assert scene.num_clusters == k
+        _COST_CACHE[k] = scene
+    return _COST_CACHE[k]
+
+
+def _cost_rays(scene, batch, device):
+    """Random rays through the scene's cube: 2^14 of them, or a ragged
+    1,013 (31 full warps and one of 21 rays) with 40% inactive."""
+    n = (1 << 14) if batch == "random" else 1013
+    rng = np.random.default_rng(29)
+    extent = float((scene.cluster_bmax.max() - scene.cluster_bmin.min()).cpu())
+    o = ((rng.random((3, n)) - 0.5) * extent).astype(np.float32)
+    d = rng.normal(size=(3, 3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o3 = tuple(torch.as_tensor(o[i], device=device) for i in range(3))
+    d3s = tuple(tuple(torch.as_tensor(d[j, i], device=device) for i in range(3))
+                for j in range(3))
+    act = None if batch == "random" else torch.as_tensor(rng.random(n) >= 0.4, device=device)
+    return o3, d3s, act, torch.full((n,), 1e-3, device=device)
+
+
+def _any_cost_forced(scene, o3, d3, tmin, t_max, lo, active, ray_major):
+    """trace_any's cost form with its schedule forced (uncounted)."""
+    from webgl_raytracer_tpu_torch.ops import kernels
+
+    ops = scene.trace_operands
+    od = T.any_operand(o3, d3, tmin, t_max, lo, active, ops.mid)
+    cp, clip_on = T.clip_operand(None, ops)
+    n = od.shape[1]
+    found = torch.empty(n, dtype=torch.int32, device=od.device)
+    cost = torch.empty(n, dtype=torch.int32, device=od.device)
+    err = kernels.library().wrt_trace_any_cost_schedule(
+        od.data_ptr(), n, ops.soa.data_ptr(), ops.box.data_ptr(), ops.ctype.data_ptr(),
+        ops.soa.shape[0], cp.data_ptr(), int(clip_on), found.data_ptr(), cost.data_ptr(),
+        ray_major, kernels.stream_handle(od.device))
+    assert err == 0
+    return found != 0, cost
+
+
+@pytest.mark.parametrize("batch", ["random", "ragged"])
+@pytest.mark.parametrize("k", list(COST_SCENES))
+@pytest.mark.parametrize("kernel", ["trace_closest", "trace_closest_perray", "trace_any",
+                                    "trace_any_perray", "trace_any3"])
+def test_cost_form_matches_plain_and_default(device, kernel, k, batch):
+    """Each cost form against its plain version (counts, t, rows and bits
+    equal) and against its default form (t, rows and bits equal); the
+    launch goes to the cost form's counter; inactive lanes count 0."""
+    scene = _cost_scene(k, device)
+    o3, d3s, act, tmin = _cost_rays(scene, batch, device)
+    perray = kernel.endswith("_perray")
+    lo = torch.full_like(tmin, 0.01)
+
+    def run(with_cost, impl=None):
+        if kernel.startswith("trace_closest"):
+            return T.trace_closest(scene, o3, d3s[0], tmin, active=act, perray=perray,
+                                   impl=impl, with_cost=with_cost)
+        if kernel == "trace_any3":
+            acts = (act, act, act)
+            out = T.trace_any3(scene, o3, d3s, tmin, accept_min=lo, actives=acts, impl=impl,
+                               with_cost=with_cost)
+            return (*out[0], out[1]) if with_cost else out
+        out = T.trace_any(scene, o3, d3s[0], tmin, t_max=20.0, accept_min=lo, active=act,
+                          perray=perray, impl=impl, with_cost=with_cost)
+        return out if with_cost else (out,)
+
+    before = dict(T.launches)
+    got = run(True)
+    assert T.launches[kernel + "_cost"] == before[kernel + "_cost"] + 1
+    assert T.launches[kernel] == before[kernel]
+    want = run(True, impl="plain")
+    default = run(False)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+    for a, b in zip(got[:-1], default):
+        assert torch.equal(a, b)
+    cost = got[-1]
+    assert cost.dtype == torch.int32 and bool((cost % 128 == 0).all())
+    assert int(cost.max()) <= k * 128 * (3 if kernel == "trace_any3" else 1)
+    assert int((cost > 0).sum()) > cost.shape[0] // 20
+    if act is not None:
+        assert not bool(cost[~act].any())
+
+
+@pytest.mark.parametrize("batch", ["random", "ragged"])
+@pytest.mark.parametrize("k", list(COST_SCENES))
+def test_trace_any_cost_schedules_agree(device, k, batch):
+    """trace_any's cost form with each schedule forced: the same bits and
+    counts as its plain version (both schedules visit in index order)."""
+    scene = _cost_scene(k, device)
+    o3, d3s, act, tmin = _cost_rays(scene, batch, device)
+    lo = torch.full_like(tmin, 0.01)
+    fp, cp = T.trace_any(scene, o3, d3s[0], tmin, t_max=20.0, accept_min=lo, active=act,
+                         impl="plain", with_cost=True)
+    for ray_major in (0, 1):
+        f, c = _any_cost_forced(scene, o3, d3s[0], tmin, 20.0, lo, act, ray_major)
+        assert torch.equal(f, fp) and torch.equal(c, cp), ray_major
+
+
+def test_vis_mode2_frame_launches_the_cost_form_once(device):
+    """A vis mode 2 frame traces its pixel rays once through
+    trace_closest_cost and draws the plain count's heatmap exactly; modes
+    1 and 3 take the default form."""
+    from webgl_raytracer_tpu_torch.render.integrator import cost_heatmap
+
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    views = {}
+    for impl in (None, "plain"):
+        r = Renderer(scene, width=160, height=96, device=device, impl=impl)
+        r.settings.vis_mode = 2
+        before = dict(T.launches)
+        r.render_frame()
+        spent = {k: v - before[k] for k, v in T.launches.items() if v != before[k]}
+        assert spent == ({"trace_closest_cost": 1} if impl is None else {})
+        assert r.frame_index == 1 and r.stats["captures"] == 0
+        views[impl] = r._accum.clone()
+    assert torch.equal(views[None], views["plain"])
+    assert float(views[None].mean()) > 0 and cost_heatmap(
+        torch.zeros(1, dtype=torch.int32, device=device)).tolist() == [[0.0, 0.0, 1.0]]
+    for mode in (1, 3):
+        r = Renderer(scene, width=160, height=96, device=device)
+        r.settings.vis_mode = mode
+        before = dict(T.launches)
+        r.render_frame()
+        spent = {k: v - before[k] for k, v in T.launches.items() if v != before[k]}
+        assert spent == {"trace_closest": 1}

@@ -134,7 +134,8 @@ def test_pipeline_oracle_and_tool_import_without_jax():
     """With the JAX package blocked, the port loads TSTP as a cartoon,
     renders it on the CPU, runs its oracle on a few pixels, loads caffeine
     with its SES (the device marching cubes too) and with its density
-    volume and renders the volume frame, imports the parity tool, and
+    volume and renders the volume frame, renders a vis mode 2 frame, runs
+    the cost profile tool with --device cpu, imports the parity tool, and
     loads no module of JAX or of the JAX package."""
     code = (
         "import sys\n"
@@ -168,6 +169,12 @@ def test_pipeline_oracle_and_tool_import_without_jax():
         "r.settings.volume_enabled = True\n"
         "r.settings.volume_max_steps = 16\n"
         "assert r.render(1).mean() > 0 and r.frame_inputs()[0].volume_enabled\n"
+        "r = Renderer(vol.scene, width=8, height=8, device='cpu')\n"
+        "r.settings.vis_mode = 2\n"
+        "assert r.render(1).mean() > 0 and r.frame_index == 1\n"
+        "from webgl_raytracer_tpu_torch.tools import cost_profile\n"
+        "assert cost_profile.main(['--scene', 'spheres600', '--width', '16', '--height',\n"
+        "                          '16', '--perray', '--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or (m.split('.')[0] == 'webgl_raytracer_tpu' and sys.modules[m] is not None))\n"
         "assert not bad, bad\n"

@@ -166,14 +166,15 @@ def test_renderer_accumulates_running_mean():
 
 @pytest.mark.parametrize("setting", ["volume", "vis_mode", "stack", "brute"])
 def test_unported_paths_raise(setting):
-    """The paths not ported yet raise; the volume march is ported, so a
-    volume frame passes check_supported."""
+    """The paths not ported yet raise; the volume march and the vis modes
+    are ported, so a volume frame and vis modes 1-3 pass check_supported."""
     change = {"volume": {"volume_enabled": True},
               "vis_mode": {"vis_mode": 1}, "stack": {"tracer": "stack"},
               "brute": {"use_bvh": False}}[setting]
     flags = dataclasses.replace(StaticFlags(), **change)
-    if setting == "volume":
-        PI.check_supported(flags)
+    if setting in ("volume", "vis_mode"):
+        for mode in ((1, 2, 3) if setting == "vis_mode" else (0,)):
+            PI.check_supported(dataclasses.replace(flags, vis_mode=mode))
         return
     with pytest.raises(NotImplementedError):
         PI.check_supported(flags)

@@ -416,14 +416,17 @@ __device__ __forceinline__ void closest_cluster(const float* __restrict__ rows, 
 // one is swept by closest_cluster. So a ray takes the lexicographic
 // minimum of (t, row) over the primitives of each cluster it needs, in
 // index order: closest_plain's t and row. Returns best t (kBig on a miss)
-// and sets best_row (-1 on a miss).
+// and sets best_row (-1 on a miss). kCost: also add to *swept the clusters
+// this lane's ray needed (its own bit of each need mask: the count of
+// ops/trace.py); without it the counter is not compiled in.
+template <bool kCost = false>
 __device__ __forceinline__ float closest_walk(const float* __restrict__ od, long long n,
                                               long long i, int lane,
                                               const float* __restrict__ soa,
                                               const float* __restrict__ box,
                                               const int* __restrict__ ct, int k,
                                               const float* __restrict__ cp, int clip_on,
-                                              int& best_row) {
+                                              int& best_row, int* swept = nullptr) {
   Ray r;
   bool act = load_ray(od, n, i, r);
   const SlabRay sr = slab_ray(r);
@@ -435,8 +438,11 @@ __device__ __forceinline__ float closest_walk(const float* __restrict__ od, long
   best_row = -1;
   if (__any_sync(kFullMask, act)) {
     for (int c = 0; c < k; ++c) {
-      const unsigned need =
-          __ballot_sync(kFullMask, act && slab_entry(box + 6 * c, sr) < best);
+      const bool want = act && slab_entry(box + 6 * c, sr) < best;
+      const unsigned need = __ballot_sync(kFullMask, want);
+      if constexpr (kCost) {
+        *swept += want ? 1 : 0;
+      }
       if (need == 0u) {
         continue;
       }
@@ -496,11 +502,14 @@ __device__ __forceinline__ bool any_sweep_cluster(const float* __restrict__ soa,
 // warp sweeps the clusters entered, in index order, until one occludes b.
 // At K = 128 that is about K/32 slab tests a lane and ray, where the
 // cluster-major schedules test every cluster box for every pending ray.
+// kCost: also add to *swept, on every lane, the clusters swept for b.
+template <bool kCost = false>
 __device__ __forceinline__ bool any_raymajor(const float* __restrict__ soa,
                                              const float* __restrict__ box,
                                              const int* __restrict__ ct, int k, int lane,
                                              const Ray& b, float lo, float hi,
-                                             float box_cap, const Clip& clip) {
+                                             float box_cap, const Clip& clip,
+                                             int* swept = nullptr) {
   const SlabRay bs = slab_ray(b);
   for (int c0 = 0; c0 < k; c0 += kWarp) {
     const int c = c0 + lane;
@@ -508,6 +517,9 @@ __device__ __forceinline__ bool any_raymajor(const float* __restrict__ soa,
     while (cm != 0u) {
       const int cc = c0 + __ffs(cm) - 1;
       cm &= cm - 1u;
+      if constexpr (kCost) {
+        ++*swept;
+      }
       if (any_sweep_cluster(soa, ct, cc, lane, b, lo, hi, clip)) {
         return true;
       }
@@ -574,8 +586,9 @@ __device__ __forceinline__ unsigned entry_key(float e) { return __float_as_uint(
 // group's start, and the warp pops the nearest, the lowest cluster first
 // among equal entries, while it lies before cap(). cap() is read at every
 // pop, so a closest hit that shrinks it prunes the rest. visit(c) returns
-// true to end the walk (an occluder found). Within a group this is the
-// order of the plain version's flat walk (ops/trace.py _perray_walk).
+// true to end the walk (an occluder found). ops/trace.py _perray_walk is
+// this walk in plain PyTorch; the per-ray kernels count the clusters they
+// visit (compiled in by their kCost), so the walk itself has no counter.
 template <class Cap, class Visit>
 __device__ __forceinline__ void perray_walk(const float* __restrict__ box,
                                             const float* __restrict__ gbox, int ng, int k,

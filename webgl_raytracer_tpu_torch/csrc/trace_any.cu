@@ -32,9 +32,19 @@
 // give any_plain's bits. Lanes past n stay in every collective and write
 // nothing.
 //
+// The cost forms (wrt_trace_any_cost, wrt_trace_any_cost_schedule; kCost
+// = true) also write each ray's count: 128 x the clusters swept for it,
+// in index order, up to and including the first that occludes it. The
+// cluster-major lane adds its own bit of each need mask; the ray-major
+// walk counts on every lane and the ray's own lane keeps it. Both visit in
+// index order, so both give the same count. The default forms are the
+// kCost = false instantiations, with no counter.
+//
 // Operands: od f32[10,n] rows 0-2 d, 3-5 centred origin, 6 t_min,
 // 7 activity (1/0), 8 t_max, 9 accept_lo; soa, box, ct, cp as in
-// trace_closest.cu. Output: found i32[n] (1 occluded, 0 not or inactive).
+// trace_closest.cu. Output: found i32[n] (1 occluded, 0 not or inactive);
+// the cost forms also cost i32[n] (0 for an inactive ray or one missing
+// the root).
 
 #include "intersect.cuh"
 
@@ -97,25 +107,30 @@ __device__ __forceinline__ bool any_cluster(const float* __restrict__ rows, int 
   return found;
 }
 
+template <bool kCost>
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any_kernel(const float* __restrict__ od, long long n,
                  const float* __restrict__ soa,
                  const float* __restrict__ box,
                  const int* __restrict__ ct, int k,
                  const float* __restrict__ cp, int clip_on,
-                 int* __restrict__ found_out) {
+                 int* __restrict__ found_out, int* __restrict__ cost_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   AnyRay a = load_any_ray(od, n, i, cp);
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
   bool found = false;
+  int swept = 0;
 
   for (int c = 0; c < k; ++c) {
     if (!__any_sync(wrt::kFullMask, a.pending)) {
       break;
     }
-    const unsigned need =
-        __ballot_sync(wrt::kFullMask, a.pending && wrt::slab_entry(box + 6 * c, a.sr) < a.hi);
+    const bool want = a.pending && wrt::slab_entry(box + 6 * c, a.sr) < a.hi;
+    const unsigned need = __ballot_sync(wrt::kFullMask, want);
+    if constexpr (kCost) {
+      swept += want ? 1 : 0;
+    }
     if (need == 0u) {
       continue;
     }
@@ -129,23 +144,28 @@ trace_any_kernel(const float* __restrict__ od, long long n,
   }
   if (i < n) {
     found_out[i] = found ? 1 : 0;
+    if constexpr (kCost) {
+      cost_out[i] = swept * wrt::kLanes;
+    }
   }
 }
 
 // Ray-major: the warp walks each pending ray's clusters with
 // intersect.cuh's any_raymajor until one occludes it.
+template <bool kCost>
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any_raymajor_kernel(const float* __restrict__ od, long long n,
                           const float* __restrict__ soa,
                           const float* __restrict__ box,
                           const int* __restrict__ ct, int k,
                           const float* __restrict__ cp, int clip_on,
-                          int* __restrict__ found_out) {
+                          int* __restrict__ found_out, int* __restrict__ cost_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   const AnyRay a = load_any_ray(od, n, i, cp);
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
   bool found = false;
+  int cost_own = 0;
 
   unsigned m = __ballot_sync(wrt::kFullMask, a.pending);
   while (m != 0u) {
@@ -154,12 +174,33 @@ trace_any_raymajor_kernel(const float* __restrict__ od, long long n,
     const wrt::Ray b = wrt::shfl_ray(a.r, src);
     const float lo = __shfl_sync(wrt::kFullMask, a.lo, src);
     const float hi = __shfl_sync(wrt::kFullMask, a.hi, src);
-    const bool hit = wrt::any_raymajor(soa, box, ct, k, lane, b, lo, hi, hi, clip);
+    int swept = 0;
+    const bool hit =
+        wrt::any_raymajor<kCost>(soa, box, ct, k, lane, b, lo, hi, hi, clip, &swept);
     found = found || (hit && lane == src);
+    if (lane == src) {
+      cost_own = swept;
+    }
   }
   if (i < n) {
     found_out[i] = found ? 1 : 0;
+    if constexpr (kCost) {
+      cost_out[i] = cost_own * wrt::kLanes;
+    }
   }
+}
+
+template <bool kCost>
+int launch(const float* od, long long n, const float* soa, const float* box,
+           const int* ct, int k, const float* cp, int clip_on, int* found_out,
+           int* cost_out, int ray_major, void* stream) {
+  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
+  const auto kernel =
+      ray_major ? trace_any_raymajor_kernel<kCost> : trace_any_kernel<kCost>;
+  kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(od, n, soa, box, ct, k, cp, clip_on,
+                                                 found_out, cost_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -170,12 +211,8 @@ extern "C" int wrt_trace_any_schedule(const float* od, long long n, const float*
                                       const float* box, const int* ct, int k,
                                       const float* cp, int clip_on, int* found_out,
                                       int ray_major, void* stream) {
-  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
-  const auto kernel = ray_major ? trace_any_raymajor_kernel : trace_any_kernel;
-  kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(od, n, soa, box, ct, k, cp, clip_on,
-                                                 found_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(od, n, soa, box, ct, k, cp, clip_on, found_out, nullptr, ray_major,
+                       stream);
 }
 
 extern "C" int wrt_trace_any(const float* od, long long n, const float* soa,
@@ -184,4 +221,21 @@ extern "C" int wrt_trace_any(const float* od, long long n, const float* soa,
                              void* stream) {
   return wrt_trace_any_schedule(od, n, soa, box, ct, k, cp, clip_on, found_out,
                                 k >= kRayMajorClusters ? 1 : 0, stream);
+}
+
+extern "C" int wrt_trace_any_cost_schedule(const float* od, long long n,
+                                           const float* soa, const float* box,
+                                           const int* ct, int k, const float* cp,
+                                           int clip_on, int* found_out, int* cost_out,
+                                           int ray_major, void* stream) {
+  return launch<true>(od, n, soa, box, ct, k, cp, clip_on, found_out, cost_out, ray_major,
+                      stream);
+}
+
+extern "C" int wrt_trace_any_cost(const float* od, long long n, const float* soa,
+                                  const float* box, const int* ct, int k,
+                                  const float* cp, int clip_on, int* found_out,
+                                  int* cost_out, void* stream) {
+  return wrt_trace_any_cost_schedule(od, n, soa, box, ct, k, cp, clip_on, found_out,
+                                     cost_out, k >= kRayMajorClusters ? 1 : 0, stream);
 }

@@ -41,10 +41,18 @@
 // -fmad=false; the sphere test returns early on a miss, so a step whose
 // 32 primitives all miss skips the square root.
 //
+// The cost form (wrt_trace_any3_cost, kCost = true) also writes each
+// lane's count: 128 x its (direction, cluster) sweeps, each direction's in
+// index order up to and including the first cluster that occludes it,
+// summed over the three directions; both schedules visit in index order
+// and give the same count. The default form is the kCost = false
+// instantiation, with no counter.
+//
 // Operands: od f32[16,n] rows 0-2 d0, 3-5 centred origin, 6 activity
 // bitmask a0 + 2 a1 + 4 a2 (as f32), 8 t_min, 9 accept_lo, 10-12 d1,
 // 13-15 d2; soa, box, ct, cp as in trace_closest.cu.
-// Output: bits i32[n], bit j set when direction j is occluded.
+// Output: bits i32[n], bit j set when direction j is occluded; the cost
+// form also cost i32[n].
 
 #include "intersect.cuh"
 
@@ -125,18 +133,20 @@ __device__ __forceinline__ void any3_cluster(const float* __restrict__ rows, int
   }
 }
 
+template <bool kCost>
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any3_kernel(const float* __restrict__ od, long long n,
                   const float* __restrict__ soa,
                   const float* __restrict__ box,
                   const int* __restrict__ ct, int k,
                   const float* __restrict__ cp, int clip_on,
-                  int* __restrict__ bits_out) {
+                  int* __restrict__ bits_out, int* __restrict__ cost_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   Fan f = load_fan(od, n, i, cp);
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
   bool found[3] = {false, false, false};
+  int swept = 0;
 
   for (int c = 0; c < k; ++c) {
     if (!__any_sync(wrt::kFullMask, f.pending[0] || f.pending[1] || f.pending[2])) {
@@ -145,8 +155,12 @@ trace_any3_kernel(const float* __restrict__ od, long long n,
     unsigned need[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      need[j] = __ballot_sync(wrt::kFullMask,
-                              f.pending[j] && wrt::slab_entry(box + 6 * c, f.sr[j]) < INFINITY);
+      const bool want =
+          f.pending[j] && wrt::slab_entry(box + 6 * c, f.sr[j]) < INFINITY;
+      need[j] = __ballot_sync(wrt::kFullMask, want);
+      if constexpr (kCost) {
+        swept += want ? 1 : 0;
+      }
     }
     if ((need[0] | need[1] | need[2]) == 0u) {
       continue;
@@ -162,24 +176,29 @@ trace_any3_kernel(const float* __restrict__ od, long long n,
   }
   if (i < n) {
     bits_out[i] = (found[0] ? 1 : 0) | (found[1] ? 2 : 0) | (found[2] ? 4 : 0);
+    if constexpr (kCost) {
+      cost_out[i] = swept * wrt::kLanes;
+    }
   }
 }
 
 // Ray-major: the warp walks each pending (lane, direction) pair's clusters
 // with intersect.cuh's any_raymajor (t_max 1e20, every entered cluster)
 // until one occludes it.
+template <bool kCost>
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_any3_raymajor_kernel(const float* __restrict__ od, long long n,
                            const float* __restrict__ soa,
                            const float* __restrict__ box,
                            const int* __restrict__ ct, int k,
                            const float* __restrict__ cp, int clip_on,
-                           int* __restrict__ bits_out) {
+                           int* __restrict__ bits_out, int* __restrict__ cost_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   const Fan f = load_fan(od, n, i, cp);
   const wrt::Clip clip = wrt::load_clip(cp, clip_on);
   bool found[3] = {false, false, false};
+  int cost_own = 0;
 
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
@@ -189,14 +208,34 @@ trace_any3_raymajor_kernel(const float* __restrict__ od, long long n,
       m &= m - 1u;
       const wrt::Ray b = wrt::shfl_ray(f.r[j], src);
       const float lo = __shfl_sync(wrt::kFullMask, f.lo, src);
-      const bool hit = wrt::any_raymajor(soa, box, ct, k, lane, b, lo, wrt::kBig, INFINITY,
-                                         clip);
+      int swept = 0;
+      const bool hit = wrt::any_raymajor<kCost>(soa, box, ct, k, lane, b, lo, wrt::kBig,
+                                                INFINITY, clip, &swept);
       found[j] = found[j] || (hit && lane == src);
+      if (lane == src) {
+        cost_own += swept;
+      }
     }
   }
   if (i < n) {
     bits_out[i] = (found[0] ? 1 : 0) | (found[1] ? 2 : 0) | (found[2] ? 4 : 0);
+    if constexpr (kCost) {
+      cost_out[i] = cost_own * wrt::kLanes;
+    }
   }
+}
+
+template <bool kCost>
+int launch(const float* od, long long n, const float* soa, const float* box,
+           const int* ct, int k, const float* cp, int clip_on, int* bits_out,
+           int* cost_out, void* stream) {
+  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
+  const auto kernel = k >= kRayMajorClusters ? trace_any3_raymajor_kernel<kCost>
+                                             : trace_any3_kernel<kCost>;
+  kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(od, n, soa, box, ct, k, cp, clip_on,
+                                                 bits_out, cost_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -205,10 +244,12 @@ extern "C" int wrt_trace_any3(const float* od, long long n, const float* soa,
                               const float* box, const int* ct, int k,
                               const float* cp, int clip_on, int* bits_out,
                               void* stream) {
-  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
-  const auto kernel = k >= kRayMajorClusters ? trace_any3_raymajor_kernel : trace_any3_kernel;
-  kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(od, n, soa, box, ct, k, cp, clip_on,
-                                                 bits_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(od, n, soa, box, ct, k, cp, clip_on, bits_out, nullptr, stream);
+}
+
+extern "C" int wrt_trace_any3_cost(const float* od, long long n, const float* soa,
+                                   const float* box, const int* ct, int k,
+                                   const float* cp, int clip_on, int* bits_out,
+                                   int* cost_out, void* stream) {
+  return launch<true>(od, n, soa, box, ct, k, cp, clip_on, bits_out, cost_out, stream);
 }

@@ -29,34 +29,58 @@
 // -fmad=false; the sphere test returns early on a miss, so a step whose 32
 // primitives all miss skips the square root.
 //
+// The cost form (wrt_trace_closest_cost, kCost = true) also writes each
+// ray's count: 128 x the clusters whose entry lay before its best t when
+// the walk reached them (its own bit of each need mask; ops/trace.py,
+// "Counts"). The default form is the kCost = false instantiation, which
+// compiles no counter.
+//
 // Operands (all device pointers, contiguous):
 //   od   f32[8,n]  rows: d xyz, centred o xyz, t_min, active (1/0)
 //   soa  f32[k,12,128] centred cluster rows
 //   box  f32[k,6]  centred cluster AABBs (lo xyz, hi xyz)
 //   ct   i32[k]    cluster type, -1 for a mixed cluster
 //   cp   f32[16]   clip plane (0-4), root AABB (8-13)
-// Outputs: t f32[n] (1e20 on a miss), row i32[n] (-1 on a miss).
+// Outputs: t f32[n] (1e20 on a miss), row i32[n] (-1 on a miss); the cost
+// form also cost i32[n] (0 for an inactive ray or one missing the root).
 
 #include "intersect.cuh"
 
 namespace {
 
+template <bool kCost>
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_closest_kernel(const float* __restrict__ od, long long n,
                      const float* __restrict__ soa,
                      const float* __restrict__ box,
                      const int* __restrict__ ct, int k,
                      const float* __restrict__ cp, int clip_on,
-                     float* __restrict__ t_out, int* __restrict__ row_out) {
+                     float* __restrict__ t_out, int* __restrict__ row_out,
+                     int* __restrict__ cost_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   int best_row;
-  const float best = wrt::closest_walk(od, n, i, lane, soa, box, ct, k, cp, clip_on,
-                                       best_row);
+  int swept = 0;
+  const float best = wrt::closest_walk<kCost>(od, n, i, lane, soa, box, ct, k, cp,
+                                              clip_on, best_row, &swept);
   if (i < n) {
     t_out[i] = best;
     row_out[i] = best_row;
+    if constexpr (kCost) {
+      cost_out[i] = swept * wrt::kLanes;
+    }
   }
+}
+
+template <bool kCost>
+int launch(const float* od, long long n, const float* soa, const float* box,
+           const int* ct, int k, const float* cp, int clip_on, float* t_out,
+           int* row_out, int* cost_out, void* stream) {
+  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
+  trace_closest_kernel<kCost><<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      od, n, soa, box, ct, k, cp, clip_on, t_out, row_out, cost_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -65,9 +89,14 @@ extern "C" int wrt_trace_closest(const float* od, long long n, const float* soa,
                                  const float* box, const int* ct, int k,
                                  const float* cp, int clip_on, float* t_out,
                                  int* row_out, void* stream) {
-  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
-  trace_closest_kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      od, n, soa, box, ct, k, cp, clip_on, t_out, row_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(od, n, soa, box, ct, k, cp, clip_on, t_out, row_out, nullptr,
+                       stream);
+}
+
+extern "C" int wrt_trace_closest_cost(const float* od, long long n, const float* soa,
+                                      const float* box, const int* ct, int k,
+                                      const float* cp, int clip_on, float* t_out,
+                                      int* row_out, int* cost_out, void* stream) {
+  return launch<true>(od, n, soa, box, ct, k, cp, clip_on, t_out, row_out, cost_out,
+                      stream);
 }

@@ -33,14 +33,21 @@
 // the index-order walk finds. Lanes past n and inactive rays take part in
 // every collective and write only their own miss.
 //
+// The cost form (wrt_trace_closest_perray_cost, kCost = true) also
+// writes each ray's count: 128 x the clusters its walk popped (visit
+// counts them on every lane; the ray's own lane keeps the count). The
+// default form is the kCost = false instantiation, with no counter.
+//
 // Operands: od f32[8,n] as trace_closest.cu; soa, box, ct, cp as there;
 // gbox f32[ng,6] group AABBs (clusters [g*128, g*128+128)).
-// Outputs: t f32[n] (1e20 on a miss), row i32[n] (-1 on a miss).
+// Outputs: t f32[n] (1e20 on a miss), row i32[n] (-1 on a miss); the cost
+// form also cost i32[n] (0 for an inactive ray).
 
 #include "intersect.cuh"
 
 namespace {
 
+template <bool kCost>
 __global__ void __launch_bounds__(wrt::kThreads, wrt::kMinBlocks)
 trace_closest_perray_kernel(const float* __restrict__ od, long long n,
                             const float* __restrict__ soa,
@@ -48,7 +55,8 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
                             const float* __restrict__ gbox, int ng,
                             const int* __restrict__ ct, int k,
                             const float* __restrict__ cp, int clip_on,
-                            float* __restrict__ t_out, int* __restrict__ row_out) {
+                            float* __restrict__ t_out, int* __restrict__ row_out,
+                            int* __restrict__ cost_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = static_cast<int>(threadIdx.x) % wrt::kWarp;
   wrt::Ray r;
@@ -57,6 +65,7 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
 
   float t_own = wrt::kBig;
   int row_own = -1;
+  int cost_own = 0;
   unsigned todo = __ballot_sync(wrt::kFullMask, act);
   while (todo != 0u) {
     const int src = __ffs(todo) - 1;
@@ -64,9 +73,13 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
     const wrt::Ray b = wrt::shfl_ray(r, src);
     float best = wrt::kBig;
     int best_row = -1;
+    int swept = 0;
     wrt::perray_walk(
         box, gbox, ng, k, wrt::slab_ray(b), lane, [&] { return best; },
         [&](int c) {
+          if constexpr (kCost) {
+            ++swept;
+          }
           const float* rows = soa + static_cast<long long>(c) * wrt::kClusterFloats;
           wrt::by_type(ct[c], [&](auto type) {
             wrt::closest_sweep_perray<decltype(type)::value>(rows, c, lane, b, clip, best,
@@ -77,12 +90,27 @@ trace_closest_perray_kernel(const float* __restrict__ od, long long n,
     if (lane == src) {
       t_own = best;
       row_own = best < wrt::kBig ? best_row : -1;
+      cost_own = swept;
     }
   }
   if (i < n) {
     t_out[i] = t_own;
     row_out[i] = row_own;
+    if constexpr (kCost) {
+      cost_out[i] = cost_own * wrt::kLanes;
+    }
   }
+}
+
+template <bool kCost>
+int launch(const float* od, long long n, const float* soa, const float* box,
+           const float* gbox, int ng, const int* ct, int k, const float* cp,
+           int clip_on, float* t_out, int* row_out, int* cost_out, void* stream) {
+  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
+  trace_closest_perray_kernel<kCost><<<static_cast<unsigned int>(blocks), wrt::kThreads,
+                                       0, static_cast<cudaStream_t>(stream)>>>(
+      od, n, soa, box, gbox, ng, ct, k, cp, clip_on, t_out, row_out, cost_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -92,9 +120,16 @@ extern "C" int wrt_trace_closest_perray(const float* od, long long n,
                                         const float* gbox, int ng, const int* ct,
                                         int k, const float* cp, int clip_on,
                                         float* t_out, int* row_out, void* stream) {
-  const long long blocks = (n + wrt::kThreads - 1) / wrt::kThreads;
-  trace_closest_perray_kernel<<<static_cast<unsigned int>(blocks), wrt::kThreads,
-                                0, static_cast<cudaStream_t>(stream)>>>(
-      od, n, soa, box, gbox, ng, ct, k, cp, clip_on, t_out, row_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(od, n, soa, box, gbox, ng, ct, k, cp, clip_on, t_out, row_out,
+                       nullptr, stream);
+}
+
+extern "C" int wrt_trace_closest_perray_cost(const float* od, long long n,
+                                             const float* soa, const float* box,
+                                             const float* gbox, int ng, const int* ct,
+                                             int k, const float* cp, int clip_on,
+                                             float* t_out, int* row_out, int* cost_out,
+                                             void* stream) {
+  return launch<true>(od, n, soa, box, gbox, ng, ct, k, cp, clip_on, t_out, row_out,
+                      cost_out, stream);
 }

@@ -29,11 +29,17 @@ SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
            "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu")
 HEADERS = ("intersect.cuh",)
 
+# The trace kernels that have a cost form: the same source compiled with
+# its counter (ops/trace.py, "Counts"), launched as "<name>_cost".
+COST_FORMS = ("trace_closest", "trace_any3", "trace_any", "trace_closest_perray",
+              "trace_any_perray")
+
 # Kernel launches by kernel name; only the wrappers' CUDA launch sites add
 # to them (ops/trace.py, ops/volume.py, tools/sweep_sol.py).
 launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
                           "trace_closest_perray", "trace_any_perray",
-                          "trace_closest_attrs", "sweep_sol", "volume_march"), 0)
+                          "trace_closest_attrs", "sweep_sol", "volume_march")
+                         + tuple(f"{name}_cost" for name in COST_FORMS), 0)
 
 # -fmad=false keeps every a*b+c rounded twice, as the plain PyTorch
 # versions round it, so the kernels' outputs match them bit for bit. No
@@ -133,6 +139,23 @@ def library() -> ctypes.CDLL:
     lib.wrt_trace_any_perray.restype = i32
     lib.wrt_trace_any_perray.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
                                          ptr, i32, ptr, ptr]
+    # The cost forms: the default form's arguments with cost i32[n] after
+    # the outputs.
+    lib.wrt_trace_closest_cost.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                           ptr, ptr, ptr, ptr]
+    lib.wrt_trace_any3_cost.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                        ptr, ptr, ptr]
+    lib.wrt_trace_any_cost.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                       ptr, ptr, ptr]
+    lib.wrt_trace_any_cost_schedule.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                                ptr, ptr, i32, ptr]
+    lib.wrt_trace_closest_perray_cost.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr,
+                                                  i32, ptr, i32, ptr, ptr, ptr, ptr]
+    lib.wrt_trace_any_perray_cost.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
+                                              ptr, i32, ptr, ptr, ptr]
+    for name in COST_FORMS:
+        getattr(lib, f"wrt_{name}_cost").restype = i32
+    lib.wrt_trace_any_cost_schedule.restype = i32
     lib.wrt_trace_closest_attrs.restype = i32
     lib.wrt_trace_closest_attrs.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
                                             ptr, ptr, ptr, ptr]

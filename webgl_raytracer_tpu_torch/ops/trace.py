@@ -74,6 +74,24 @@ Semantics shared by the kernels and their plain versions:
     for bit;
   * inactive lanes return a miss (t = BIG, row = -1; occlusion bits 0).
 
+Counts (with_cost=True; the JAX package's with_cost outputs). Each trace
+can also return i32[N]: C = 128 times the clusters whose primitives were
+swept for the ray, in the order its kernel visits them. An inactive ray,
+and one that misses the root box, gets 0; a cluster counts once, also
+where its sweep stops after the 32-primitive step that holds an
+occluding hit. trace_closest charges each cluster, in index order, whose
+entry lies before the ray's best t so far (the need mask of intersect.cuh
+closest_walk); trace_any each cluster, in index order, entered before
+t_max up to and including the first that occludes it (both schedules
+visit in index order, so both give it); trace_any3 the sum of that over
+its three directions; the per-ray kernels each cluster they pop, group by
+group. The JAX block kernels charge every ray its 1024-ray block's
+union, which belongs to the TPU's schedule: the port counts per ray. The
+counting forms are kernels of their own (trace_closest_cost,
+trace_any3_cost, trace_any_cost, trace_closest_perray_cost,
+trace_any_perray_cost: the same source compiled with the counter), so
+the default forms are the code they were.
+
 Dispatch is by tensor device: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, which raises when it cannot be built or launched.
 `impl="plain"` forces the plain version on a CUDA tensor (used to compare
@@ -298,24 +316,32 @@ def closest_operand(o3, d3, t_min, active, mid):
 
 
 def trace_closest(scene, o3, d3, t_min, clip=None, active=None, perray=False,
-                  impl=None):
+                  impl=None, with_cost=False):
     """Closest hit: (t f32[N] with BIG on a miss, row i32[N] with -1 on a
     miss), rows indexing the [K*C] cluster slots. perray=True takes the
-    per-ray walk (kernel trace_closest_perray); the result is the same."""
+    per-ray walk (kernel trace_closest_perray); the result is the same.
+    with_cost appends the ray's count i32[N] (module docstring, "Counts"),
+    through the kernel's cost form (trace_closest_cost,
+    trace_closest_perray_cost) on the card."""
     ops = scene.trace_operands
     od = closest_operand(o3, d3, t_min, active, ops.mid)
     cp, clip_on = clip_operand(clip, ops)
     if _use_kernel(od, impl):
-        return _closest_cuda(ops, od, cp, clip_on, perray)
-    if perray:
-        return _perray_walk(ops, od, cp, clip_on, any_hit=False)[:2]
-    return closest_plain(ops, od, cp, clip_on)
+        out = _closest_cuda(ops, od, cp, clip_on, perray, with_cost)
+    elif perray:
+        t, row, _, cost = _perray_walk(ops, od, cp, clip_on, any_hit=False)
+        out = (t, row, cost)
+    else:
+        out = closest_plain(ops, od, cp, clip_on, with_cost=True)
+    return out if with_cost else out[:2]
 
 
-def closest_plain(ops: TraceOperands, od, cp, clip_on):
+def closest_plain(ops: TraceOperands, od, cp, clip_on, with_cost=False):
     """Plain version of the closest kernel on the same operands: the same
     cluster walk (index order, skip at entry >= best), as dense masked
-    [chunk, C] tensor sweeps."""
+    [chunk, C] tensor sweeps. with_cost appends the count: C x the
+    clusters whose entry lies before the ray's best t when the walk
+    reaches them (the kernel's need mask)."""
     n = od.shape[1]
     device = od.device
     c = ops.soa.shape[-1]
@@ -323,6 +349,7 @@ def closest_plain(ops: TraceOperands, od, cp, clip_on):
     lane = torch.arange(c, dtype=torch.int32, device=device)
     t_out = torch.full((n,), BIG, dtype=torch.float32, device=device)
     row_out = torch.full((n,), -1, dtype=torch.int32, device=device)
+    cost_out = torch.zeros((n,), dtype=torch.int32, device=device)
     for s in range(0, n, PLAIN_CHUNK):
         sl = slice(s, min(n, s + PLAIN_CHUNK))
         d3 = (od[0, sl], od[1, sl], od[2, sl])
@@ -333,10 +360,12 @@ def closest_plain(ops: TraceOperands, od, cp, clip_on):
         entry = torch.where(act[:, None], entry, INF)
         best = t_out[sl].clone()
         row = row_out[sl].clone()
+        swept = cost_out[sl].clone()
         for k, ct in enumerate(ops.ctype_host):
             need = entry[:, k] < best
             if not bool(need.any()):
                 continue
+            swept += need.to(torch.int32)
             ts = intersect_soa_t(_cluster_types(ct, ops.types), ops.soa[k],
                                  o3, d3, tmin, clip)
             valid = need[:, None] & (ts > 0.0) & (ts < best[:, None])
@@ -348,6 +377,9 @@ def closest_plain(ops: TraceOperands, od, cp, clip_on):
             row = torch.where(upd, k * c + j, row)
         t_out[sl] = best
         row_out[sl] = row
+        cost_out[sl] = swept * c
+    if with_cost:
+        return t_out, row_out, cost_out
     return t_out, row_out
 
 
@@ -382,15 +414,20 @@ def _launch(name: str, ops: TraceOperands, od, cp, clip_on, outs, group=False,
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 
 
-def _closest_cuda(ops: TraceOperands, od, cp, clip_on, perray=False):
-    name = "trace_closest_perray" if perray else "trace_closest"
+def _closest_cuda(ops: TraceOperands, od, cp, clip_on, perray=False, with_cost=False):
+    """(t, row, cost): cost is None unless with_cost, which launches the
+    kernel's cost form."""
+    name = ("trace_closest_perray" if perray else "trace_closest") + (
+        "_cost" if with_cost else "")
     n = od.shape[1]
-    t = torch.empty(n, dtype=torch.float32, device=od.device)
-    row = torch.empty(n, dtype=torch.int32, device=od.device)
+    outs = [torch.empty(n, dtype=torch.float32, device=od.device),
+            torch.empty(n, dtype=torch.int32, device=od.device)]
+    if with_cost:
+        outs.append(torch.empty(n, dtype=torch.int32, device=od.device))
     if n:
-        _launch("wrt_" + name, ops, od, cp, clip_on, (t, row), group=perray)
+        _launch("wrt_" + name, ops, od, cp, clip_on, outs, group=perray)
         launches[name] += 1
-    return t, row
+    return outs[0], outs[1], (outs[2] if with_cost else None)
 
 
 # ---------------------------------------------------------------------------
@@ -456,32 +493,39 @@ def any3_operand(o3, d3s, t_min, accept_lo, actives, mid):
 
 
 def trace_any3(scene, o3, d3s, t_min, accept_min=None, clip=None,
-               actives=(None, None, None), impl=None):
+               actives=(None, None, None), impl=None, with_cost=False):
     """Occlusion of three co-origin rays per lane with t in (accept_min,
     BIG): (occ0, occ1, occ2) bool [N]. d3s: three direction triples;
-    actives: three candidate masks (None = all live)."""
+    actives: three candidate masks (None = all live). with_cost returns
+    ((occ0, occ1, occ2), cost i32[N]) as the JAX package's trace_any3
+    does, the count summed over the three directions (trace_any3_cost on
+    the card)."""
     ops = scene.trace_operands
     lo = 0.0 if accept_min is None else accept_min
     od = any3_operand(o3, d3s, t_min, lo, actives, ops.mid)
     cp, clip_on = clip_operand(clip, ops)
     if _use_kernel(od, impl):
-        bits = _any3_cuda(ops, od, cp, clip_on)
+        bits, cost = _any3_cuda(ops, od, cp, clip_on, with_cost)
     else:
-        bits = any3_plain(ops, od, cp, clip_on)
-    return tuple((bits & (1 << j)) != 0 for j in range(3))
+        bits, cost = any3_plain(ops, od, cp, clip_on, with_cost=True)
+    occ = tuple((bits & (1 << j)) != 0 for j in range(3))
+    return (occ, cost) if with_cost else occ
 
 
-
-def any3_plain(ops: TraceOperands, od, cp, clip_on):
+def any3_plain(ops: TraceOperands, od, cp, clip_on, with_cost=False):
     """Plain version of the shadow-fan kernel on the same operands:
     i32[N] bitmask, bit j set when direction j is occluded. Direction j
     sweeps cluster k only where its ray enters k's AABB and is unresolved
     (the relevance gate; occlusion is an order-free OR, so gating never
-    changes a bit)."""
+    changes a bit). with_cost appends the count: C x the (direction,
+    cluster) sweeps, in index order, each direction's up to and including
+    the first cluster that occludes it."""
     n = od.shape[1]
     device = od.device
+    c = ops.soa.shape[-1]
     clip = _clip_of(cp, clip_on)
     bits_out = torch.zeros(n, dtype=torch.int32, device=device)
+    cost_out = torch.zeros(n, dtype=torch.int32, device=device)
     for s in range(0, n, PLAIN_CHUNK):
         sl = slice(s, min(n, s + PLAIN_CHUNK))
         o3 = (od[3, sl], od[4, sl], od[5, sl])
@@ -490,6 +534,7 @@ def any3_plain(ops: TraceOperands, od, cp, clip_on):
         am = od[6, sl].to(torch.int32)
         dirs = [(od[r, sl], od[r + 1, sl], od[r + 2, sl]) for r in (0, 10, 13)]
         entries, found = [], []
+        swept = torch.zeros_like(am)
         for j in range(3):
             act = (am & (1 << j)) != 0
             e = cluster_entry_t(ops.box[:, :3], ops.box[:, 3:], o3, dirs[j])
@@ -501,21 +546,29 @@ def any3_plain(ops: TraceOperands, od, cp, clip_on):
                 need = (entries[j][:, k] < INF) & ~found[j]
                 if not bool(need.any()):
                     continue
+                swept += need.to(torch.int32)
                 ts = intersect_soa_t(types, ops.soa[k], o3, dirs[j], tmin, clip)
                 hit = ((ts > lo) & (ts < BIG)).any(dim=1)
                 found[j] = found[j] | (hit & need)
         bits_out[sl] = (found[0].to(torch.int32) + 2 * found[1].to(torch.int32)
                         + 4 * found[2].to(torch.int32))
+        cost_out[sl] = swept * c
+    if with_cost:
+        return bits_out, cost_out
     return bits_out
 
 
-def _any3_cuda(ops: TraceOperands, od, cp, clip_on):
+def _any3_cuda(ops: TraceOperands, od, cp, clip_on, with_cost=False):
+    """(bits, cost): cost is None unless with_cost (trace_any3_cost)."""
+    name = "trace_any3_cost" if with_cost else "trace_any3"
     n = od.shape[1]
-    bits = torch.empty(n, dtype=torch.int32, device=od.device)
+    outs = [torch.empty(n, dtype=torch.int32, device=od.device)]
+    if with_cost:
+        outs.append(torch.empty(n, dtype=torch.int32, device=od.device))
     if n:
-        _launch("wrt_trace_any3", ops, od, cp, clip_on, (bits,))
-        launches["trace_any3"] += 1
-    return bits
+        _launch("wrt_" + name, ops, od, cp, clip_on, outs)
+        launches[name] += 1
+    return outs[0], (outs[1] if with_cost else None)
 
 
 # ---------------------------------------------------------------------------
@@ -523,47 +576,86 @@ def _any3_cuda(ops: TraceOperands, od, cp, clip_on):
 
 
 def _perray_walk(ops: TraceOperands, od, cp, clip_on, any_hit: bool):
-    """Plain version of the per-ray kernels: each ray pops its nearest
-    unvisited cluster entry (lowest index among equal entries) while that
-    entry is before its best t (closest; the lexicographic (t, row)
-    update) or, for occlusion, before t_max until a hit is found. od is
-    closest_operand's layout, or any_operand's when any_hit. The kernels'
-    outer group walk only skips groups whose clusters this flat walk would
-    skip too, so it is not repeated here. Returns (t, row, found)."""
+    """Plain version of the per-ray kernels' walk (intersect.cuh
+    perray_walk), group by group: each ray pops its nearest unvisited
+    group of GROUP clusters (lowest group among equal entries) while that
+    entry is before its cap, and inside the group its nearest unvisited
+    cluster (lowest index among equal entries) while that entry is before
+    its cap. The cap is the best t so far (closest; the lexicographic (t,
+    row) update) or t_max (occlusion, until a hit is found). od is
+    closest_operand's layout, or any_operand's when any_hit. A flat walk
+    over all clusters gives the same (t, row) and bits but, above GROUP
+    clusters, another count: it can skip a cluster of an early group that
+    the group walk sweeps before a later group lowers the best t.
+    Returns (t, row, found, cost), cost C x the clusters popped."""
     n = od.shape[1]
     device = od.device
     k, c = ops.soa.shape[0], ops.soa.shape[-1]
+    g = ops.gbox.shape[0]
     clip = _clip_of(cp, clip_on)
-    kio = torch.arange(k, device=device)
+    gio = torch.arange(g, device=device)
     lane = torch.arange(c, device=device)
+    jio = torch.arange(GROUP, device=device)
     t_out = torch.full((n,), BIG, dtype=torch.float32, device=device)
     row_out = torch.full((n,), -1, dtype=torch.int32, device=device)
     found_out = torch.zeros((n,), dtype=torch.bool, device=device)
+    cost_out = torch.zeros((n,), dtype=torch.int32, device=device)
     for s in range(0, n, PLAIN_CHUNK):
         sl = slice(s, min(n, s + PLAIN_CHUNK))
+        m = sl.stop - sl.start
         d3 = (od[0, sl], od[1, sl], od[2, sl])
         o3 = (od[3, sl], od[4, sl], od[5, sl])
         tmin = od[6, sl]
-        entry = cluster_entry_t(ops.box[:, :3], ops.box[:, 3:], o3, d3)
-        entry = torch.where(od[7, sl][:, None] > 0.0, entry, INF)
+        act = od[7, sl] > 0.0
+        entry = torch.full((m, g * GROUP), INF, dtype=torch.float32, device=device)
+        entry[:, :k] = cluster_entry_t(ops.box[:, :3], ops.box[:, 3:], o3, d3)
+        entry = torch.where(act[:, None], entry, INF).reshape(m, g, GROUP)
+        gent = torch.where(act[:, None],
+                           cluster_entry_t(ops.gbox[:, :3], ops.gbox[:, 3:], o3, d3), INF)
         if any_hit:
             cap, lo = od[8, sl], od[9, sl]
-            entry = torch.where(entry < cap[:, None], entry, INF)
-        best, row, found = t_out[sl].clone(), row_out[sl].clone(), found_out[sl].clone()
+        best, row = t_out[sl].clone(), row_out[sl].clone()
+        found, cost = found_out[sl].clone(), cost_out[sl].clone()
+        grp = torch.full((m,), -1, dtype=torch.int64, device=device)
+        live = act.clone()
         while True:
-            m = entry.min(dim=1).values
-            sel = (m < INF) & ~found if any_hit else m < best
-            rs = sel.nonzero().squeeze(1)
+            limit = cap if any_hit else best
+            # Rays between groups pop their next group, or end their walk.
+            rs = (live & (grp < 0)).nonzero().squeeze(1)
+            if rs.numel():
+                ge = gent[rs]
+                gm = ge.min(dim=1).values
+                gi = torch.where(ge == gm[:, None], gio, g).min(dim=1).values
+                ok = gm < limit[rs]
+                live[rs[~ok]] = False
+                rs, gi = rs[ok], gi[ok]
+                grp[rs] = gi
+                gent[rs, gi] = INF
+            # Rays inside a group pop their next cluster, or leave the group.
+            rs = (live & (grp >= 0)).nonzero().squeeze(1)
             if rs.numel() == 0:
-                break
-            er = entry[rs]
-            idx = torch.where(er == m[rs, None], kio, k).min(dim=1).values
-            entry[rs, idx] = INF
+                if not bool(live.any()):
+                    break
+                continue
+            gr = grp[rs]
+            er = entry[rs, gr]
+            em = er.min(dim=1).values
+            go = em < limit[rs]
+            grp[rs[~go]] = -1
+            rs, gr, er, em = rs[go], gr[go], er[go], em[go]
+            if rs.numel() == 0:
+                continue
+            j = torch.where(er == em[:, None], jio, GROUP).min(dim=1).values
+            entry[rs, gr, j] = INF
+            idx = gr * GROUP + j
+            cost[rs] += c
             ts = intersect_soa_t(ops.types, ops.soa[idx],
                                  tuple(x[rs] for x in o3), tuple(x[rs] for x in d3),
                                  tmin[rs], clip)
             if any_hit:
-                found[rs] = ((ts > lo[rs, None]) & (ts < cap[rs, None])).any(dim=1)
+                hit = ((ts > lo[rs, None]) & (ts < cap[rs, None])).any(dim=1)
+                found[rs] = hit
+                live[rs[hit]] = False
                 continue
             tm = torch.where(ts > 0.0, ts, INF)
             tb = tm.min(dim=1).values
@@ -573,8 +665,8 @@ def _perray_walk(ops: TraceOperands, od, cp, clip_on, any_hit: bool):
             upd = (tb < b0) | ((tb == b0) & (cand < r0))
             best[rs] = torch.where(upd, tb, b0)
             row[rs] = torch.where(upd, cand, r0)
-        t_out[sl], row_out[sl], found_out[sl] = best, row, found
-    return t_out, row_out, found_out
+        t_out[sl], row_out[sl], found_out[sl], cost_out[sl] = best, row, found, cost
+    return t_out, row_out, found_out, cost_out
 
 
 # ---------------------------------------------------------------------------
@@ -596,33 +688,44 @@ def any_operand(o3, d3, t_min, t_max, accept_lo, active, mid):
 
 
 def trace_any(scene, o3, d3, t_min, t_max=BIG, accept_min=None, clip=None,
-              active=None, perray=False, impl=None):
+              active=None, perray=False, impl=None, with_cost=False):
     """Occlusion: bool [N], True where some primitive is hit with t in
     (accept_min, t_max). perray=True takes the per-ray walk (kernel
-    trace_any_perray); the bits are the same."""
+    trace_any_perray); the bits are the same. with_cost returns (bits,
+    cost i32[N]) (trace_any_cost, trace_any_perray_cost on the card)."""
     ops = scene.trace_operands
     od = any_operand(o3, d3, t_min, t_max, 0.0 if accept_min is None else accept_min,
                      active, ops.mid)
     cp, clip_on = clip_operand(clip, ops)
     if _use_kernel(od, impl):
-        name = "trace_any_perray" if perray else "trace_any"
-        found = torch.empty(od.shape[1], dtype=torch.int32, device=od.device)
-        if od.shape[1]:
-            _launch("wrt_" + name, ops, od, cp, clip_on, (found,), group=perray)
+        name = ("trace_any_perray" if perray else "trace_any") + (
+            "_cost" if with_cost else "")
+        n = od.shape[1]
+        outs = [torch.empty(n, dtype=torch.int32, device=od.device)]
+        if with_cost:
+            outs.append(torch.empty(n, dtype=torch.int32, device=od.device))
+        if n:
+            _launch("wrt_" + name, ops, od, cp, clip_on, outs, group=perray)
             launches[name] += 1
-        return found != 0
-    if perray:
-        return _perray_walk(ops, od, cp, clip_on, any_hit=True)[2]
-    return any_plain(ops, od, cp, clip_on)
+        found, cost = outs[0] != 0, (outs[1] if with_cost else None)
+    elif perray:
+        _, _, found, cost = _perray_walk(ops, od, cp, clip_on, any_hit=True)
+    else:
+        found, cost = any_plain(ops, od, cp, clip_on, with_cost=True)
+    return (found, cost) if with_cost else found
 
 
-def any_plain(ops: TraceOperands, od, cp, clip_on):
+def any_plain(ops: TraceOperands, od, cp, clip_on, with_cost=False):
     """Plain version of the occlusion kernel on the same operands: bool
     [N]. Cluster k is swept for a ray still unresolved whose entry into
-    k's AABB is before its t_max."""
+    k's AABB is before its t_max. with_cost appends the count: C x the
+    clusters so swept, in index order, up to and including the first one
+    that occludes the ray (either schedule of the kernel)."""
     n = od.shape[1]
+    c = ops.soa.shape[-1]
     clip = _clip_of(cp, clip_on)
     found_out = torch.zeros((n,), dtype=torch.bool, device=od.device)
+    cost_out = torch.zeros((n,), dtype=torch.int32, device=od.device)
     for s in range(0, n, PLAIN_CHUNK):
         sl = slice(s, min(n, s + PLAIN_CHUNK))
         d3 = (od[0, sl], od[1, sl], od[2, sl])
@@ -631,12 +734,17 @@ def any_plain(ops: TraceOperands, od, cp, clip_on):
         entry = cluster_entry_t(ops.box[:, :3], ops.box[:, 3:], o3, d3)
         live = (od[7, sl][:, None] > 0.0) & (entry < cap)
         found = torch.zeros_like(found_out[sl])
+        swept = torch.zeros_like(cost_out[sl])
         for k, ct in enumerate(ops.ctype_host):
             need = live[:, k] & ~found
             if not bool(need.any()):
                 continue
+            swept += need.to(torch.int32)
             ts = intersect_soa_t(_cluster_types(ct, ops.types), ops.soa[k],
                                  o3, d3, tmin, clip)
             found = found | (need & ((ts > lo) & (ts < cap)).any(dim=1))
         found_out[sl] = found
+        cost_out[sl] = swept * c
+    if with_cost:
+        return found_out, cost_out
     return found_out

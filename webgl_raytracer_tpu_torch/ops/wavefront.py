@@ -33,8 +33,8 @@ class HitRecord:
     prim_local: torch.Tensor   # i32[B], per-type index, -1 on a miss
     prim_slot: torch.Tensor    # i32[B], cluster*C + lane, -1 on a miss
     extra: torch.Tensor        # f32[B,3]: (cap code | barycentric u, v, 0)
-    cost: torch.Tensor | None  # i32[B] traversal cost; None: the kernels
-    #                            count none yet (arrives with the vis modes)
+    cost: torch.Tensor | None  # i32[B] primitives swept (ops/trace.py,
+    #                            "Counts") when the trace was asked for it, else None
 
 
 def scene_types(scene) -> tuple[bool, bool, bool]:
@@ -309,7 +309,7 @@ def _broadcast_t_min(t_min, like):
 
 def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
                         secondary=False, full_record=True, with_attrs=False,
-                        impl=None):
+                        impl=None, with_cost=False):
     """Closest hit over the cluster SoA; rays as component triples.
     prim_slot indexes the padded cluster table ([K*C, 12]). The kernel's
     t is rounded in scene-centred coordinates; finalisation refines
@@ -327,10 +327,16 @@ def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
     (ops/trace.trace_closest_attrs), the winner's attribute row, so that
     neither this call nor shading gathers. Every closest trace with attrs
     takes that block kernel, secondaries included, as the JAX package
-    routes it."""
+    routes it.
+
+    with_cost: the record's cost is the trace's count (the kernel's cost
+    form on the card); otherwise it is None. The attrs kernel has no cost
+    form, so with_attrs and with_cost do not go together."""
     from . import trace as T
 
     t_min = _broadcast_t_min(t_min, o3[0])
+    if with_attrs and with_cost:
+        raise ValueError("the attrs kernel has no cost form")
     if with_attrs:
         t, attrs = T.trace_closest_attrs(scene, o3, d3, t_min, clip=clip,
                                          active=active, impl=impl)
@@ -338,8 +344,10 @@ def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
                             cost=None, refine_sphere_t=True, row=attrs[:, :12])
         return rec, attrs
     perray = secondary and T.perray_auto_secondary(scene)
-    closest, best_row = T.trace_closest(scene, o3, d3, t_min, clip=clip,
-                                        active=active, perray=perray, impl=impl)
+    out = T.trace_closest(scene, o3, d3, t_min, clip=clip, active=active, perray=perray,
+                          impl=impl, with_cost=with_cost)
+    closest, best_row = out[:2]
+    cost = out[2] if with_cost else None
     if not full_record:
         hit = best_row >= 0
         return HitRecord(
@@ -349,9 +357,9 @@ def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
             prim_slot=best_row,
             extra=torch.zeros((best_row.shape[0], 3), dtype=torch.float32,
                               device=best_row.device),
-            cost=None)
+            cost=cost)
     return _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row,
-                         cost=None, refine_sphere_t=True)
+                         cost=cost, refine_sphere_t=True)
 
 
 def wf_trace_any_v3(scene, o3, d3, t_min, t_max=BIG, accept_min=None,

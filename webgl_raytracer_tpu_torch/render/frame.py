@@ -27,6 +27,12 @@ the StaticFlags, the size, the scene, environment and volume, impl and the
 transport knobs (integrator.TRANSPORT_KNOBS); a change of any of them
 recaptures. The uniforms are one device buffer (config.uniforms_view)
 refreshed in place, so a camera move or a uniform setting needs none.
+
+Visualisation modes (settings.vis_mode 1-3) render eagerly, one frame at
+a time with no capture, as the JAX package does: the view
+(integrator.render_visualization) replaces the accumulator, frame_index
+becomes 1, and image() shows it through the linear tone map. A vis frame
+releases the held capture, so the next path-traced frame captures anew.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from ..scene.camera import OrbitCamera
 from ..scene.compile import SceneBuffers, scene_bounds, scene_scale
 from .config import (UNIFORM_SIZE, RenderSettings, split_settings, static_flags,
                      uniform_values, uniforms_view)
-from .integrator import (TRANSPORT_KNOBS, render_batch_flagged, render_batch_stats)
+from .integrator import (TRANSPORT_KNOBS, render_batch_flagged, render_batch_stats,
+                         render_visualization)
 from .lights import light_dirs_for_camera
 
 
@@ -331,6 +338,10 @@ class Renderer:
         if count <= 0:
             return False
         flags = self._frame_setup()
+        if flags.vis_mode > 0:
+            for _ in range(count):
+                self._vis_frame(flags)
+            return True
         captured = (self._captured(flags)
                     if self.device.type == "cuda" and self.impl is None else None)
         start = self.frame_index
@@ -351,6 +362,16 @@ class Renderer:
         self.frame_index = start + count
         self.ray_counts = (self.ray_counts[0] + paths, self.ray_counts[1] + occl)
         return True
+
+    def _vis_frame(self, flags) -> None:
+        """One visualisation frame: the view written over the accumulator
+        in place (a held capture reads that tensor), frame_index 1."""
+        self._release_graph()
+        color = render_visualization(self.scene, flags, self._u, self._px, self._py,
+                                     self.frame_index, env=self.env, impl=self.impl,
+                                     vol=self.volume)
+        self._accum.copy_(color)
+        self.frame_index = 1
 
     def _redo(self, flags, start, count, saved):
         """Redo frames [start, start + count) eagerly through
@@ -393,9 +414,11 @@ class Renderer:
         return flat.cpu().numpy().reshape(self.height, self.width, 3)
 
     def image(self) -> np.ndarray:
-        """Tone-mapped display image f32[H,W,3] in [0,1]."""
+        """Tone-mapped display image f32[H,W,3] in [0,1]; the linear map in
+        visualisation modes."""
         linear = torch.as_tensor(self.accumulated())
-        return apply_tonemap(linear, self.settings.tone_map).numpy()
+        mode = self.settings.tone_map if self.settings.vis_mode == 0 else "linear"
+        return apply_tonemap(linear, mode).numpy()
 
     def image_u8(self) -> np.ndarray:
         return (np.clip(self.image(), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)

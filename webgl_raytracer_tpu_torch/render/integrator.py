@@ -41,9 +41,12 @@ Each transport is a permutation of the same per-lane computation, so all
 give the same frame bit for bit (per-ray results do not depend on
 batching).
 
-Not ported yet, and raising NotImplementedError when asked for:
-visualisation modes 1-3, the stack tracer and the brute-force
-(use_bvh=False) sweep.
+render_visualization draws the debug views (vis modes 1-3) from the
+pixel rays' closest hits: normals, a heatmap of the trace's count
+(ops/trace.py, "Counts") and depth.
+
+Not ported yet, and raising NotImplementedError when asked for: the stack
+tracer and the brute-force (use_bvh=False) sweep.
 
 No host reads. Where the JAX package skips work with
 `lax.cond(jnp.any(mask))`, this module runs the masked work anyway: a
@@ -85,9 +88,6 @@ THROUGHPUT_CLAMP = 10.0
 
 def check_supported(flags) -> None:
     """Raise for settings whose code paths are not ported yet."""
-    if flags.vis_mode != 0:
-        raise NotImplementedError(
-            f"visualisation mode {flags.vis_mode} is not ported yet")
     if flags.tracer != "wavefront":
         raise NotImplementedError(f"tracer {flags.tracer!r} is not ported yet")
     if not flags.use_bvh:
@@ -907,3 +907,64 @@ def render_batch(scene, flags, u, px, py, frame_index, env=None, impl=None, vol=
     """One progressive sample set per pixel -> colour f32[B,3]."""
     return render_batch_stats(scene, flags, u, px, py, frame_index, env=env,
                               impl=impl, vol=vol)[0]
+
+
+# Mode 2's ramp, from no cost to COST_HEATMAP_MAX primitives a ray: blue,
+# cyan, green, yellow, red.
+COST_HEATMAP_MAX = 200.0
+COST_HEATMAP_STOPS = ((0.0, 0.0, 1.0), (0.0, 1.0, 1.0), (0.0, 1.0, 0.0),
+                      (1.0, 1.0, 0.0), (1.0, 0.0, 0.0))
+
+
+def cost_heatmap(cost):
+    """Vis mode 2's colour f32[B,3] of a count i32[B]: the five-stop ramp
+    of clip(cost / 200, 0, 1), as the JAX package's render_visualization
+    draws it."""
+    t = torch.clamp(cost.to(torch.float32) / COST_HEATMAP_MAX, 0.0, 1.0)
+    stops = torch.tensor(COST_HEATMAP_STOPS, dtype=torch.float32, device=cost.device)
+    seg = torch.clamp(t * 4.0, 0.0, 4.0)
+    frac = (seg - torch.floor(seg))[:, None]
+    idx = torch.clamp(torch.floor(seg).to(torch.int64), 0, 3)
+    return stops[idx] * (1 - frac) + stops[idx + 1] * frac
+
+
+def pixel_centre_rays(u, px, py):
+    """The visualisation's pixel rays (origin, direction): through the
+    pixel's centre with no jitter, plus the reference's extra +0.5."""
+    fragx = px.to(torch.float32) + 0.5
+    fragy = py.to(torch.float32) + 0.5
+    uvx = (fragx + 0.5) / u.resolution[0] * 2.0 - 1.0
+    uvy = (fragy + 0.5) / u.resolution[1] * 2.0 - 1.0
+    fwd, right, up = u.cam_forward, u.cam_right, u.cam_up
+    direction = V.normalize((
+        fwd[0] + uvx * right[0] + uvy * up[0],
+        fwd[1] + uvx * right[1] + uvy * up[1],
+        fwd[2] + uvx * right[2] + uvy * up[2],
+    ))
+    return tuple(u.cam_origin[c].expand(px.shape) for c in range(3)), direction
+
+
+def render_visualization(scene, flags, u, px, py, frame_index=0, env=None, impl=None,
+                         vol=None):
+    """The debug view of flags.vis_mode, f32[B,3] (the JAX package's
+    render_visualization): 1 normals, (n + 1) / 2, black on a miss; 2 the
+    heatmap of the primary closest hit's count (cost_heatmap; the
+    trace_closest_cost kernel on the card); 3 depth, 1 - clip(t / 10, 0,
+    1), 0 on a miss. The rays are pixel_centre_rays, clip plane applied;
+    no env, volume or frame index enters the view, and any other mode is
+    black."""
+    origin, direction = pixel_centre_rays(u, px, py)
+    rec = wf_trace_closest_v3(scene, origin, direction, u.t_min, _clip_tuple(flags, u),
+                              impl=impl, with_cost=flags.vis_mode == 2)
+    hit = rec.prim_type >= 0
+    if flags.vis_mode == 1:
+        pos = V.add(origin, V.scale(direction, rec.t))
+        _, sn, _, _ = _surface_attributes(scene, flags, rec, pos, direction, u)
+        color = V.scale(V.add(sn, (1.0, 1.0, 1.0)), 0.5)
+        return V.to_array(V.where(hit, color, V.zeros_like(color[0])))
+    if flags.vis_mode == 2:
+        return cost_heatmap(rec.cost)
+    if flags.vis_mode == 3:
+        depth = torch.where(hit, 1.0 - torch.clamp(rec.t / 10.0, 0.0, 1.0), 0.0)
+        return V.to_array((depth, depth, depth))
+    return torch.zeros(px.shape + (3,), dtype=torch.float32, device=px.device)
