@@ -14,7 +14,6 @@ import argparse
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 
 ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -31,6 +30,7 @@ spec.loader.exec_module(C)
 
 import torch  # noqa: E402
 
+from webgl_raytracer_tpu_torch.device import card_line  # noqa: E402
 from webgl_raytracer_tpu_torch.ops import kernels  # noqa: E402
 from webgl_raytracer_tpu_torch.ops import trace as T  # noqa: E402
 from webgl_raytracer_tpu_torch.render import Renderer  # noqa: E402
@@ -121,9 +121,7 @@ closest("4b trace_closest_perray 150k random", s150k, o3, d3, tmin, None, None, 
 any_("5b trace_any_perray 150k random", s150k,
      dict(o3=o3, d3=d3, t_min=tmin, t_max=20.0, accept_min=torch.full_like(tmin, 0.01),
           clip=None, active=None), perray=True)
-smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                     capture_output=True, text=True)
-res = {"tree": tag, "card": smi.stdout.strip(), "reps": REPS, "kernel_ms": out}
+res = {"tree": tag, "card": card_line(), "reps": REPS, "kernel_ms": out}
 if args.out:
     with open(args.out, "w", encoding="utf-8") as f:
         json.dump(res, f, indent=1)

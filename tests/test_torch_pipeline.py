@@ -21,7 +21,7 @@ from webgl_raytracer_tpu.models import parse_auto_detect as j_parse
 from webgl_raytracer_tpu_torch.app import pipeline as PP
 from webgl_raytracer_tpu_torch.models import get_builtin_molecule as p_mol
 from webgl_raytracer_tpu_torch.models import parse_auto_detect as p_parse
-from webgl_raytracer_tpu_torch.scene.compile import COUNT_FIELDS, TENSOR_FIELDS
+from webgl_raytracer_tpu_torch.scene.compile import COUNT_FIELDS, HOST_FIELDS, TENSOR_FIELDS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(REPO, "assets", "proteins", "TSTP.pdb"), encoding="utf-8") as _f:
@@ -54,10 +54,14 @@ def _assert_same_scene(p_loaded, j_loaded):
         assert a.shape == b.shape and a.tobytes() == b.tobytes(), name
     for name in COUNT_FIELDS:
         assert getattr(ps, name) == int(getattr(js, name)), name
+    for name, dtype in HOST_FIELDS.items():
+        a, b = getattr(ps.pick_tables, name), np.asarray(getattr(js, name))
+        assert a.dtype == b.dtype == dtype and np.array_equal(a, b), name
     for name in ("positions", "normals", "indices", "tri_colors", "tri_flags"):
         assert np.array_equal(getattr(p_loaded.mesh, name), getattr(j_loaded.mesh, name)), name
     stats = {k: v for k, v in j_loaded.stats.items() if k != "bvh_nodes"}
     assert p_loaded.stats == stats
+    assert ps.pick_tables.node_count == j_loaded.stats.get("bvh_nodes", js.node_count)
 
 
 @pytest.mark.parametrize("case", MOLECULE_SCENES, ids=[c[0] for c in MOLECULE_SCENES])

@@ -8,16 +8,20 @@ Layout mirrors the reference:
 
   models/  molecule parsing (SDF, PDB), bond inference, ball-and-stick
            geometry, triangle meshes and the protein cartoon (host numpy)
-  app/     scene-loading pipelines: display styles, the cartoon scene, the
-           debug and random-sphere scenes
-  scene/   host-side BVH build, cluster compile, camera maths
+  app/     scene-loading pipelines (display styles, the cartoon scene, the
+           debug and random-sphere scenes), the CLI (render / bench / pick
+           / info / serve) and the HTTP viewer
+  scene/   host-side BVH build, cluster compile, camera maths, the CPU
+           picking tracer and the hover overlay
   env/     HDR codec, analytic sky, environment CDFs and controller
   ops/     RNG, vector/sampling/BRDF maths, env-map sampling, tone map,
            the cluster tracer and its kernels (ops/trace.py, ops/kernels.py)
-  render/  settings split, the path-tracing integrator, the Renderer, and
-           the reference oracle (numpy transliteration of the shader, its
-           all-pairs trace optionally on the card)
+  render/  settings split, the path-tracing integrator, the Renderer,
+           picking through its camera, and the reference oracle (numpy
+           transliteration of the shader, its all-pairs trace optionally
+           on the card)
   tools/   the sweep-rate probe and the parity tool (renderer vs oracle)
+  utils/   the ring logger, display formatting, the stdlib PNG codec
   csrc/    CUDA sources of the kernels, and the C++ BVH builder
 
 Entry points put their tensors on cuda:0 unless given device="cpu".

@@ -74,10 +74,12 @@ def decode_hdr(data: bytes) -> tuple[int, int, np.ndarray]:
     return width, height, out
 
 
-def load_hdr(path: str):
+def load_hdr(path: str, logger=None):
     """Load a .hdr file -> dict(width, height, data f32[H,W,4])."""
     with open(path, "rb") as f:
         width, height, data = decode_hdr(f.read())
+    if logger:
+        logger.info(f"Environment map size {width}x{height}")
     return {"width": width, "height": height, "data": data}
 
 

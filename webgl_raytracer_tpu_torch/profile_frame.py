@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import time
 
 WIDTH, HEIGHT = 1920, 1080
@@ -196,6 +195,7 @@ def main() -> int:
     import torch
 
     from .app.pipeline import load_molecule_scene
+    from .device import card_line
     from .env import EnvironmentController
     from .models import parse_auto_detect
     from .render import Renderer
@@ -204,10 +204,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
     device = torch.device("cuda", 0)
-    nvsmi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    print(nvsmi, flush=True)
+    print(card_line(device), flush=True)
     sky = EnvironmentController(device=device).load_analytic_sky()
     spheres1000 = compile_scene(random_sphere_geometry(1000), device=device)
     with open(PROTEIN, encoding="utf-8") as f:

@@ -21,6 +21,7 @@ import torch
 from ..device import resolve_device
 
 MATERIAL_MODES = {"metallic": 0, "matte": 1, "surface-glass": 2, "translucent-plastic": 3}
+TONE_MAPS = ("linear", "aces", "reinhard")
 
 
 @dataclass
@@ -47,6 +48,7 @@ def default_lights() -> list[LightSettings]:
 class RenderSettings:
     """Full render state, with the JAX package's defaults."""
     render_scale: float = 1.0
+    fast_scale: float = 0.25        # the viewer's preview scale while interacting
     use_bvh: bool = True
     use_imported_color: bool = True
     base_color: tuple[float, float, float] = (0.8, 0.8, 0.8)
@@ -93,6 +95,26 @@ class RenderSettings:
     clip_locked_side: float | None = None
     vis_mode: int = 0               # 0 render, 1 normals, 2 cost, 3 depth
     tracer: str = "wavefront"
+
+
+def apply_material_preset(settings: RenderSettings, mode: str) -> bool:
+    """Material-mode preset: selecting translucent-plastic loads its
+    dielectric defaults; other modes leave the sliders untouched. Returns
+    True when a preset was applied."""
+    if mode != "translucent-plastic":
+        return False
+    settings.metallic = 0.0
+    settings.roughness = 0.22
+    settings.rim_boost = 0.0
+    settings.surface_ior = 1.46
+    settings.surface_transmission = 0.55
+    settings.surface_opacity = 0.15
+    return True
+
+
+def clip_distance_max(scene_scale: float) -> float:
+    """Clip-plane distance range from the scene scale: max(1, scale * 4)."""
+    return max(1.0, float(scene_scale) * 4.0)
 
 
 @dataclass(frozen=True)

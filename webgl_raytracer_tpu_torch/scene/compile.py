@@ -13,15 +13,25 @@ rows. A cluster row is
 Beside the rows, `cluster_attr` f32[K,C,16] holds each slot's shading
 attributes (build_attr_soa): colour rgb (0-2), the triangle's vertex
 normals n0/n1/n2 (3-11) and its flag (12). The attrs kernel
-(ops/trace.trace_closest_attrs) returns the winner's row of it. The unified
-leaf-4 BVH and the prim_* tables of the JAX package serve its stack tracer
-and picking only, so they are not built here.
+(ops/trace.trace_closest_attrs) returns the winner's row of it.
+
+Picking and the hover overlay (scene/pick.py, scene/overlay.py) read
+`SceneBuffers.pick_tables`: host tables in world coordinates, as the JAX
+package's SceneBuffers holds them — the unified leaf-4 BVH
+(node_bmin/bmax/meta), the leaf-ordered primitive table (prim_a/b/c,
+prim_type, prim_local) and the per-type tables (tri_verts,
+sphere_centers/radii, cyl_p1/p2/radii). Nothing on the card reads them,
+so compile_scene does not build them: the first pick, hover or read of
+the tables builds them once, for the scene and every .to() copy of it.
+They stay numpy arrays on the host whatever the scene's device.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
-from functools import cached_property
+import copy
+from dataclasses import dataclass, field, fields
+from functools import cache, cached_property, partial
+from typing import Callable
 
 import numpy as np
 import torch
@@ -34,13 +44,46 @@ from .bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE, build_bvh
 TENSOR_FIELDS = ("cluster_prims", "cluster_soa", "cluster_color",
                  "cluster_bmin", "cluster_bmax", "cluster_attr", "tri_normals",
                  "tri_flags")
+# PickTables' numpy fields (world coordinates) and their dtypes.
+HOST_FIELDS = {"node_bmin": np.float32, "node_bmax": np.float32, "node_meta": np.int32,
+               "prim_a": np.float32, "prim_b": np.float32, "prim_c": np.float32,
+               "prim_type": np.int32, "prim_local": np.int32,
+               "tri_verts": np.float32, "sphere_centers": np.float32,
+               "sphere_radii": np.float32, "cyl_p1": np.float32, "cyl_p2": np.float32,
+               "cyl_radii": np.float32}
 COUNT_FIELDS = ("tri_count", "sphere_count", "cylinder_count",
                 "num_clusters", "cluster_size")
 
 
 @dataclass
+class PickTables:
+    """The BVH and primitive tables of picking and the overlay: host numpy
+    arrays in world coordinates."""
+
+    node_bmin: np.ndarray           # f32[Nn,3] unified leaf-4 BVH
+    node_bmax: np.ndarray           # f32[Nn,3]
+    node_meta: np.ndarray           # i32[Nn,3] (leftFirst, primCount, rightChild)
+    prim_a: np.ndarray              # f32[Np,4] leaf-ordered primitive rows
+    prim_b: np.ndarray              # f32[Np,4]
+    prim_c: np.ndarray              # f32[Np,4]
+    prim_type: np.ndarray           # i32[Np]
+    prim_local: np.ndarray          # i32[Np] per-type index
+    tri_verts: np.ndarray           # f32[max(Nt,1),3,3]
+    sphere_centers: np.ndarray      # f32[max(Ns,1),3]
+    sphere_radii: np.ndarray        # f32[max(Ns,1)]
+    cyl_p1: np.ndarray              # f32[max(Nc,1),3]
+    cyl_p2: np.ndarray              # f32[max(Nc,1),3]
+    cyl_radii: np.ndarray           # f32[max(Nc,1)]
+
+    @property
+    def node_count(self) -> int:
+        return int(self.node_bmin.shape[0])
+
+
+@dataclass
 class SceneBuffers:
-    """Cluster layout + shading side tables, as tensors on `device`."""
+    """Cluster layout + shading side tables, as tensors on `device`; the
+    tables of picking on the host, built on first use."""
 
     cluster_prims: torch.Tensor     # f32[K,C,12]
     cluster_soa: torch.Tensor       # f32[K,12,C] (SoA transpose)
@@ -56,12 +99,24 @@ class SceneBuffers:
     num_clusters: int
     cluster_size: int
     device: torch.device
+    # Returns the PickTables, building them on its first call only.
+    pick_source: Callable[[], PickTables] = field(repr=False, compare=False)
 
     def to(self, device) -> "SceneBuffers":
+        """The scene with its tensors on `device`; the copy shares the
+        host tables (built or not) with this scene."""
         device = torch.device(device)
         moved = {name: getattr(self, name).to(device) for name in TENSOR_FIELDS}
         counts = {name: getattr(self, name) for name in COUNT_FIELDS}
-        return SceneBuffers(**moved, **counts, device=device)
+        return SceneBuffers(**moved, **counts, device=device, pick_source=self.pick_source)
+
+    @property
+    def pick_tables(self) -> PickTables:
+        return self.pick_source()
+
+    @property
+    def prim_count(self) -> int:
+        return self.tri_count + self.sphere_count + self.cylinder_count
 
     @cached_property
     def trace_operands(self):
@@ -75,14 +130,24 @@ class SceneBuffers:
 def scene_from_numpy(fields_: dict, device=None) -> SceneBuffers:
     """SceneBuffers from the JAX package's SceneBuffers fields as numpy
     arrays (what its compile_scene returns before device_put) — carries an
-    identical scene into the port. Fields this package does not use are
-    ignored. device None means cuda:0."""
+    identical scene into the port, the host tables of picking included.
+    The fields of a port scene (numpy_fields) carry its tables' source
+    instead. Fields this package does not use are ignored. device None
+    means cuda:0."""
+    if "pick_source" in fields_:
+        return _scene(fields_, device, fields_["pick_source"])
+    tables = PickTables(**{name: np.asarray(fields_[name], dtype)
+                           for name, dtype in HOST_FIELDS.items()})
+    return _scene(fields_, device, lambda: tables)
+
+
+def _scene(fields_: dict, device, pick_source) -> SceneBuffers:
     device = resolve_device(device)
     tensors = {name: torch.tensor(np.asarray(fields_[name], np.float32),
                                   device=device)
                for name in TENSOR_FIELDS}
     counts = {name: int(fields_[name]) for name in COUNT_FIELDS}
-    return SceneBuffers(**tensors, **counts, device=device)
+    return SceneBuffers(**tensors, **counts, device=device, pick_source=pick_source)
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -140,7 +205,55 @@ def compile_scene(geometry: Geometry | None = None, tri_verts=None,
         num_clusters=prims.shape[0],
         cluster_size=cluster_size,
     )
-    return scene_from_numpy(fields_, device)
+    # Built on first use, from copies: the caller may reuse its arrays.
+    return _scene(fields_, device,
+                  cache(partial(_pick_tables, copy.deepcopy(geometry), tv.copy())))
+
+
+def _at_least_one(a: np.ndarray) -> np.ndarray:
+    return a if a.shape[0] > 0 else _pad_rows(a, 1)
+
+
+def _pick_tables(geometry: Geometry, tv: np.ndarray) -> PickTables:
+    """The host tables of picking, as the JAX package's compile_scene
+    builds them: the unified leaf-4 BVH over all primitives, its
+    leaf-ordered primitive table and the per-type tables (at least one
+    row each)."""
+    bvh = build_bvh(tri_verts=tv, sphere_centers=geometry.sphere_centers,
+                    sphere_radii=geometry.sphere_radii, cyl_p1=geometry.cyl_p1,
+                    cyl_p2=geometry.cyl_p2, cyl_radii=geometry.cyl_radii)
+    nt, ns = tv.shape[0], geometry.num_spheres
+    n = max(1, bvh.prim_count)
+    prim_a = np.zeros((n, 4), np.float32)
+    prim_b = np.zeros((n, 4), np.float32)
+    prim_c = np.zeros((n, 4), np.float32)
+    prim_type = np.zeros(n, np.int32)
+    prim_local = np.zeros(n, np.int32)
+    if bvh.prim_count:
+        gid = bvh.prim_order
+        ptype = np.where(gid < nt, PRIM_TRIANGLE,
+                         np.where(gid < nt + ns, PRIM_SPHERE, PRIM_CYLINDER))
+        local = np.where(gid < nt, gid, np.where(gid < nt + ns, gid - nt, gid - nt - ns))
+        prim_type[:] = ptype
+        prim_local[:] = local
+        tri, sph, cyl = (ptype == PRIM_TRIANGLE, ptype == PRIM_SPHERE,
+                         ptype == PRIM_CYLINDER)
+        prim_a[tri, :3] = tv[local[tri], 0]
+        prim_b[tri, :3] = tv[local[tri], 1]
+        prim_c[tri, :3] = tv[local[tri], 2]
+        prim_a[sph, :3] = geometry.sphere_centers[local[sph]]
+        prim_a[sph, 3] = geometry.sphere_radii[local[sph]]
+        prim_a[cyl, :3] = geometry.cyl_p1[local[cyl]]
+        prim_a[cyl, 3] = geometry.cyl_radii[local[cyl]]
+        prim_b[cyl, :3] = geometry.cyl_p2[local[cyl]]
+    return PickTables(
+        node_bmin=bvh.node_bmin, node_bmax=bvh.node_bmax, node_meta=bvh.node_meta,
+        prim_a=prim_a, prim_b=prim_b, prim_c=prim_c, prim_type=prim_type,
+        prim_local=prim_local, tri_verts=_at_least_one(tv),
+        sphere_centers=_at_least_one(geometry.sphere_centers),
+        sphere_radii=_at_least_one(geometry.sphere_radii),
+        cyl_p1=_at_least_one(geometry.cyl_p1), cyl_p2=_at_least_one(geometry.cyl_p2),
+        cyl_radii=_at_least_one(geometry.cyl_radii))
 
 
 ATTR_COLS = 16

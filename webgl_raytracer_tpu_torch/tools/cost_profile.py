@@ -26,22 +26,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 REFERENCE = "~30-60 (per-pixel BVH walk, webgl.js:556-686)"
-
-
-def _card(device) -> str | None:
-    """nvidia-smi's name and power limit line of the card, None on the CPU."""
-    if device.type != "cuda":
-        return None
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None
 
 
 def _unit(v):
@@ -113,7 +102,7 @@ def profile(scene, name, width=1920, height=1080, perray=False, device=None) -> 
     """The report of one scene: mean primitives tested per live ray, by
     population, for the block kernels and (perray, where the scene takes
     the per-ray kernels) the per-ray ones."""
-    from ..device import resolve_device
+    from ..device import card_line, resolve_device
     from ..ops import trace as T
 
     device = resolve_device(device)
@@ -125,7 +114,7 @@ def profile(scene, name, width=1920, height=1080, perray=False, device=None) -> 
     report = {"scene": name, "clusters": int(scene.num_clusters), "rays": n,
               "size": f"{width}x{height}", "hit_fraction": float(hit.float().mean()),
               "mean_prims_tested_per_ray": {}, "reference_for_scale": REFERENCE,
-              "device": str(device), "card": _card(device)}
+              "device": str(device), "card": card_line(device)}
     for per in variants:
         sub = {}
         for pop, (o, d, act, kind) in pops.items():

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import torch
 
@@ -43,6 +42,7 @@ def _profiled(fn, device) -> int:
 
 
 def measure(device) -> dict:
+    from ..device import card_line
     from ..render import integrator as I
     from ..render.integrator import render_batch
     from . import parity_rmse as P
@@ -86,10 +86,7 @@ def measure(device) -> dict:
     out["plain_march_per_step"] = out["plain_march_per_call"] / max(1, flags.volume_max_steps)
     if device.type == "cuda":
         out["kernel_march"] = _profiled(marches(None), device)
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
-        out["card"] = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None
+        out["card"] = card_line(device)
     return out
 
 

@@ -39,7 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -245,18 +244,8 @@ def run_row(row: Row, size: int, frames: int, device, trace_device=None,
     return out
 
 
-def card_line() -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    return smi.stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
-    from ..device import resolve_device
+    from ..device import card_line, resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", help="rows whose name contains this substring")
@@ -268,7 +257,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(None)          # the card; raises without one
-    card = card_line()
+    card = card_line(device)
+    if card is None:
+        raise RuntimeError("nvidia-smi gave no name and power limit for the card")
     print(card, flush=True)
     table = rows()
     if args.only:

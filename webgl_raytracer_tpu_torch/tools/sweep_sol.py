@@ -24,12 +24,12 @@ compute type); a CPU tensor takes the plain version.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
+from ..device import card_line
 from ..ops import vec3 as V
 from ..ops.kernels import launches
 
@@ -142,9 +142,7 @@ def main(argv=None) -> int:
     iters = int(argv[0]) if argv else DEFAULT_ITERS
     if not torch.cuda.is_available():
         raise SystemExit("sweep_sol measures the card: no CUDA device is available")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     results = {name: run(iters, dt)[0] for name, dt in DTYPES.items()}
     for r in results.values():
