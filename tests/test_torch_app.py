@@ -12,8 +12,10 @@ tests/test_torch_render.py's frame tolerance (at most 1% of pixels off by
 more than 1e-4, the mean of the rest within 1e-3 relative), and the
 served PNG must decode to the port's image_u8, upsampled to the base size
 while the preview renders smaller. The JAX side runs eagerly
-(jax.disable_jit), as in the other frame comparisons. The port's own
-refusals (tracer "stack", use_bvh false, pdb:ID) are tested on their own.
+(jax.disable_jit), as in the other frame comparisons. The tracer
+settings (tracer "stack", use_bvh false) run through a session of their
+own against the JAX ViewerState, and the port's refusal of pdb:ID is
+tested on its own.
 Vis mode 2 draws a count that the two packages take differently
 (tests/test_torch_vis.py), so the session shows mode 1.
 """
@@ -39,7 +41,9 @@ import torch
 from webgl_raytracer_tpu.app import cli as JCLI
 from webgl_raytracer_tpu.app import pipeline as JP
 from webgl_raytracer_tpu.app.server import ViewerState as JState
+from webgl_raytracer_tpu.ops import traversal as JT
 from webgl_raytracer_tpu.render import Renderer as JRenderer
+from webgl_raytracer_tpu.render import integrator as JI
 from webgl_raytracer_tpu.utils import create_logger as j_logger
 from webgl_raytracer_tpu.utils import format_poly_count as j_format
 from webgl_raytracer_tpu_torch.app import cli as PCLI
@@ -188,25 +192,57 @@ def test_viewer_state_session_matches_jax():
     assert _messages(js.logger) == _messages(ps.logger)
 
 
+TRACER_SESSION = [
+    ("frame",),
+    ("settings", {"tracer": "stack"}), ("frame",), ("frame",), ("hover", 8, 8),
+    ("settings", {"tracer": "bogus", "use_bvh": 0}), ("frame",), ("state",),
+    ("settings", {"tracer": "wavefront"}), ("frame",),
+    ("settings", {"use_bvh": True, "tracer": "stack", "vis_mode": 1}), ("frame",),
+    ("settings", {"vis_mode": 0, "tracer": "wavefront"}), ("frame",), ("state",),
+]
+
+
+def test_viewer_tracer_settings_match_jax(monkeypatch):
+    """/settings tracer "stack" and use_bvh false through the port's and the
+    JAX package's ViewerState, step by step as in
+    test_viewer_state_session_matches_jax: the same answers, state,
+    settings and log lines, the frames within the frame tolerance. The
+    JAX stack walk runs jitted inside its eager frame, as in
+    tests/test_torch_render.py test_tracer_frames_match_jax."""
+    walk = jax.jit(JT._traverse, static_argnames=("any_hit", "max_steps", "max_leaf"))
+
+    def jitted(*args, **kw):
+        with jax.disable_jit(False):
+            return walk(*args, **kw)
+
+    monkeypatch.setattr(JI, "_traverse", jitted)
+    js, ps = _states(16, 16)
+    js.SETTLE_SECONDS = ps.SETTLE_SECONDS = 0.0
+    seen = set()
+    for i, step in enumerate(TRACER_SESSION):
+        with jax.disable_jit():
+            ja = _call(js, step)
+        pa = _call(ps, step)
+        jr, pr = js.renderer, ps.renderer
+        seen.add((pr.settings.tracer, pr.settings.use_bvh))
+        if step[0] == "frame":
+            _close_frames(jr, pr)
+            assert np.array_equal(decode_png(pa), pr.image_u8()), i
+        else:
+            assert json.dumps(ja) == json.dumps(pa), (i, step, ja, pa)
+        assert json.dumps(js.state()) == json.dumps(ps.state()), (i, step)
+        assert _settings(jr) == dataclasses.asdict(pr.settings), (i, step)
+    assert seen == {("wavefront", True), ("stack", True), ("stack", False),
+                    ("wavefront", False)}
+    assert _messages(js.logger) == _messages(ps.logger)
+    assert any("rejected setting tracer='bogus'" in line for line in _messages(ps.logger))
+
+
 def test_viewer_refusals():
-    """The port's own behaviour: tracer "stack" and use_bvh false are
-    rejected and logged with the reason, the settings stay as they were
-    and the next frame renders; pdb:ID answers an error that points to a
+    """The port's own behaviour: pdb:ID answers an error that points to a
     local file, and the scene stays."""
     _, ps = _states(16, 16)
     r = ps.renderer
-    before = dataclasses.asdict(r.settings)
-    ps.update_settings({"tracer": "stack", "use_bvh": False, "exposure": 2.0})
-    assert (r.settings.tracer, r.settings.use_bvh, r.settings.exposure) == \
-        ("wavefront", True, 2.0)
-    before["exposure"] = 2.0
-    assert dataclasses.asdict(r.settings) == before
-    lines = _messages(ps.logger)
-    for key, value in (("tracer", "'stack'"), ("use_bvh", "False")):
-        assert any(line.startswith(f"WARN: rejected setting {key}={value}: ")
-                   and "Queue 1 item 3" in line for line in lines), lines
-    ps.update_settings({"use_bvh": True, "tracer": "wavefront"})
-    assert decode_png(ps.frame_png()).shape == (16, 16, 3) and r.frame_index == 1
     prims = r.scene.prim_count
     out = ps.load_scene({"scene": "pdb:1STP"})
     assert out["ok"] is False and "network" in out["error"] and "pdb:1STP" in out["error"]
@@ -429,7 +465,6 @@ def test_cli_render_ascii_png_checkpoint_and_bench(tmp_path, capsys):
 
 
 REFUSED = {
-    "--tracer stack": (["--tracer", "stack"], "Queue 1 item 3"),
     "--devices 2": (["--devices", "2"], "Queue 1 item 7"),
     "--pdb-id": (["--pdb-id", "1STP"], "--pdb-file"),
 }
@@ -444,6 +479,18 @@ def test_cli_refuses_unported_options(option, command):
     with pytest.raises(SystemExit) as exc:
         PCLI.main([command, *scene, *extra, *pick, "--device", "cpu"])
     assert message in str(exc.value.code)
+
+
+def test_cli_render_stack_tracer(capsys):
+    """cli render --tracer stack: the port's CLI renders through the stack
+    walk (the JAX package's --tracer stack), the same ASCII frame shape
+    as the wavefront tracer's, and a PNG-free run on the CPU."""
+    base = ["--molecule", "caffeine", "--width", "24", "--height", "12", "--frames", "1",
+            "--device", "cpu", "--no-env", "--bounces", "2"]
+    art = _cli(PCLI.main, ["render", *base, "--tracer", "stack"], capsys)
+    wave = _cli(PCLI.main, ["render", *base], capsys)
+    assert len(art.splitlines()) == len(wave.splitlines()) == 12
+    assert set(art) - set(" .:-=+*#%@\n") == set() and art.strip()
 
 
 def test_png_codec_and_upsample():

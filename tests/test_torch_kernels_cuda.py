@@ -935,3 +935,63 @@ def test_vis_mode2_frame_launches_the_cost_form_once(device):
         r.render_frame()
         spent = {k: v - before[k] for k, v in T.launches.items() if v != before[k]}
         assert spent == {"trace_closest": 1}
+
+
+@pytest.mark.parametrize("name", ["spheres400", "caffeine+tris"])
+@pytest.mark.parametrize("clip", [None, ((0.0, 0.0, 1.0), 0.5, 1.0)],
+                         ids=["no clip", "clip"])
+def test_trace_stack_kernels_match_plain(device, name, clip, monkeypatch):
+    """trace_stack_closest and trace_stack_any against the plain walk, bit
+    for bit, with inactive rays, a capped walk and any-hit windows; on a
+    CUDA tensor the wrappers never take the plain walk."""
+    from webgl_raytracer_tpu_torch.ops import traversal as PT
+
+    scene = _compile(name, device)
+    o3, d3s, acts, tmin = _fan(1013, 3, device, spread=0.4)
+    d3, act = d3s[0], acts[0]
+    plain = {(steps, any_hit): (PT.trace_any(scene, o3, d3, tmin, t_max=30.0, accept_min=0.5,
+                                             clip=clip, max_steps=steps, active=act,
+                                             impl="plain", with_cost=True)
+                                if any_hit else
+                                PT.trace_closest(scene, o3, d3, tmin, clip=clip,
+                                                 max_steps=steps, active=act, impl="plain"))
+             for steps in (2048, 5) for any_hit in (False, True)}
+    monkeypatch.setattr(PT, "walk_plain", None)
+    for (steps, any_hit), want in plain.items():
+        before = dict(T.launches)
+        if any_hit:
+            got = PT.trace_any(scene, o3, d3, tmin, t_max=30.0, accept_min=0.5, clip=clip,
+                               max_steps=steps, active=act, with_cost=True)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            got = PT.trace_closest(scene, o3, d3, tmin, clip=clip, max_steps=steps,
+                                   active=act)
+            for field in ("t", "prim_slot", "prim_type", "prim_local", "extra", "cost"):
+                a, b = getattr(got, field), getattr(want, field)
+                assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                                   b.view(torch.int32) if b.is_floating_point() else b), field
+            assert bool((got.prim_slot[~act] == -1).all())
+        kernel = "trace_stack_any" if any_hit else "trace_stack_closest"
+        assert T.launches[kernel] == before[kernel] + 1
+
+
+@pytest.mark.parametrize("settings", [{"tracer": "stack"}, {"use_bvh": False}],
+                         ids=["stack", "brute"])
+def test_tracer_graph_frames_equal_eager_frames(device, settings):
+    """Frames of the stack tracer and of the brute sweep are captured and
+    replay to the eager frames bit for bit, ray counts included."""
+    from webgl_raytracer_tpu_torch.render.integrator import render_batch_stats
+
+    r = Renderer(_compile("caffeine+tris", device), width=64, height=48, device=device)
+    for k, v in settings.items():
+        setattr(r.settings, k, v)
+    r.render_frames(3)
+    assert r.stats["captures"] == 1
+    flags, u, px, py = r.frame_inputs()
+    acc, rays = None, [0, 0]
+    for f in range(3):
+        color, (p, o) = render_batch_stats(r.scene, flags, u, px, py, f)
+        acc = color if f == 0 else (acc * float(f) + color) / torch.tensor(
+            f + 1.0, device=device)
+        rays = [rays[0] + int(p), rays[1] + int(o)]
+    assert torch.equal(r._accum, acc) and list(r.ray_counts) == rays

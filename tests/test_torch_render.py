@@ -29,13 +29,14 @@ import torch
 from bench import random_sphere_geometry as bench_spheres
 from webgl_raytracer_tpu.env import generate_analytic_sky, load_hdr, make_env_buffers
 from webgl_raytracer_tpu.models import get_builtin_molecule, molecule_to_geometry
+from webgl_raytracer_tpu.ops import traversal as JT
 from webgl_raytracer_tpu.render import Renderer as JRenderer
 from webgl_raytracer_tpu.render import integrator as JI
 from webgl_raytracer_tpu.render.config import split_settings as j_split
 from webgl_raytracer_tpu.render.lights import light_dirs_for_camera as j_lights
 from webgl_raytracer_tpu.scene import compile_scene as j_compile
 from webgl_raytracer_tpu_torch.env import env_from_numpy
-from webgl_raytracer_tpu_torch.render import Renderer, StaticFlags
+from webgl_raytracer_tpu_torch.render import Renderer
 from webgl_raytracer_tpu_torch.render import integrator as PI
 from webgl_raytracer_tpu_torch.scene.compile import numpy_fields, scene_from_numpy
 
@@ -164,20 +165,83 @@ def test_renderer_accumulates_running_mean():
     assert img.shape == (16, 32, 3) and img.dtype == np.uint8
 
 
-@pytest.mark.parametrize("setting", ["volume", "vis_mode", "stack", "brute"])
-def test_unported_paths_raise(setting):
-    """The paths not ported yet raise; the volume march and the vis modes
-    are ported, so a volume frame and vis modes 1-3 pass check_supported."""
-    change = {"volume": {"volume_enabled": True},
-              "vis_mode": {"vis_mode": 1}, "stack": {"tracer": "stack"},
-              "brute": {"use_bvh": False}}[setting]
-    flags = dataclasses.replace(StaticFlags(), **change)
-    if setting in ("volume", "vis_mode"):
-        for mode in ((1, 2, 3) if setting == "vis_mode" else (0,)):
-            PI.check_supported(dataclasses.replace(flags, vis_mode=mode))
-        return
-    with pytest.raises(NotImplementedError):
-        PI.check_supported(flags)
+@pytest.fixture
+def jitted_jax_walk(monkeypatch):
+    """The JAX integrator's stack walk (traversal._traverse) jitted inside
+    the otherwise eager JAX frame: run op by op, the walk takes seconds a
+    trace. Jitted XLA code contracts FMAs, so the JAX walk's t may differ
+    from the port's by ulps, which the frame criterion's flipped-pixel
+    allowance covers on the molecules' near, well-conditioned hits (on the
+    1000 distant spheres it flips 2% of the pixels, which an eager JAX
+    frame does not). The walk itself is compared bit for bit, eagerly, in
+    tests/test_torch_traversal.py."""
+    walk = jax.jit(JT._traverse, static_argnames=("any_hit", "max_steps", "max_leaf"))
+
+    def jitted(scene, origin, direction, t_min, clip, **kw):
+        with jax.disable_jit(False):
+            return walk(scene, origin, direction, t_min, clip, **kw)
+
+    monkeypatch.setattr(JI, "_traverse", jitted)
+
+
+TRACER_FRAMES = [
+    ("stack caffeine 24x16", "caffeine", 24, 16, {"tracer": "stack"}, None),
+    ("brute caffeine 24x16", "caffeine", 24, 16, {"use_bvh": False}, None),
+    ("stack caffeine+tris 24x16 clip plane", "caffeine", 24, 16,
+     {"tracer": "stack", "tri_verts": TRIS, "clip_enabled": True, "clip_distance": 14.0},
+     None),
+    ("stack caffeine 32x16 permuted matte", "caffeine", 32, 16,
+     {"tracer": "stack", "material_mode": "matte"}, "2"),
+    ("brute caffeine+tris 32x16 permuted glass", "caffeine", 32, 16,
+     {"use_bvh": False, "tri_verts": TRIS, "material_mode": "surface-glass"}, "2"),
+]
+
+
+@pytest.mark.parametrize("case", TRACER_FRAMES, ids=[c[0] for c in TRACER_FRAMES])
+def test_tracer_frames_match_jax(case, jitted_jax_walk, monkeypatch):
+    """Frames of the stack tracer and of the brute sweep (use_bvh=False)
+    against the JAX package's, whole batch and, with WRT_CHUNKS, through
+    the permuted transport (neither takes the binned one), under the frame
+    criterion of test_frame_matches_jax."""
+    _, geo, w, h, settings, chunks = case
+    if chunks:
+        monkeypatch.setenv("WRT_CHUNKS", chunks)
+    geo = molecule_to_geometry(get_builtin_molecule(geo))
+    (jr, jf, ju, jx, jy), (pr, pf, pu, px, py) = _pair(geo, w, h, **settings)
+    assert (pf.tracer, pf.use_bvh) == (jf.tracer, jf.use_bvh)
+    with jax.disable_jit():
+        jc, (jn, jo) = JI.render_batch_stats(jr.scene, jr.env, None, jf, ju, jx, jy,
+                                             jnp.uint32(0))
+    with _transports() as taken:
+        pc, (pn, po) = PI.render_batch_stats(pr.scene, pf, pu, px, py, 0, env=pr.env)
+    assert taken == (["permuted"] if chunks else [])
+    jc, pc = np.asarray(jc), pc.numpy()
+    assert np.isfinite(pc).all() and pc.mean() > 0
+    diff = np.abs(pc - jc).max(axis=1)
+    flipped = np.nonzero(diff > 1e-4)[0]
+    assert len(flipped) <= 0.01 * diff.size, f"flipped rays: {flipped.tolist()}"
+    keep = diff <= 1e-4
+    assert abs(pc[keep].mean() - jc[keep].mean()) <= 1e-3 * jc[keep].mean()
+    assert abs(int(pn) - int(jn)) <= pf.max_bounces * len(flipped)
+    assert abs(int(po) - int(jo)) <= 3 * pf.max_bounces * len(flipped)
+    assert int(po) > 0
+
+
+class _transports:
+    """The chunked transports a frame takes inside the block."""
+
+    def __enter__(self):
+        self.taken, self.real = [], (PI._run_permuted, PI._binned_transport)
+
+        def spy(name, fn):
+            return lambda *a, **k: self.taken.append(name) or fn(*a, **k)
+
+        PI._run_permuted = spy("permuted", self.real[0])
+        PI._binned_transport = spy("binned", self.real[1])
+        return self.taken
+
+    def __exit__(self, *exc):
+        PI._run_permuted, PI._binned_transport = self.real
 
 
 def test_port_imports_and_renders_without_jax():

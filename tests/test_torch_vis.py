@@ -10,7 +10,10 @@ there, since fused XLA code contracts FMAs the port never forms. Mode 2
 draws a count, and the two packages count differently (ops/trace.py,
 "Counts": the port per ray, the JAX CPU path per 256-ray tile), so its
 ramp is held to JAX's on JAX's own count, within 1e-6, and the port's
-image to the ramp of its own count.
+image to the ramp of its own count. Under the stack tracer both packages
+draw the walk's own count (node visits plus primitive tests), counted the
+same way per ray: there mode 2 must equal JAX's image bit for bit. Under
+use_bvh=False the count is K * C.
 """
 
 import jax
@@ -63,7 +66,7 @@ def _scenes(name="caffeine"):
     return _SCENES[name]
 
 
-def _pair(mode, clip, name="caffeine"):
+def _pair(mode, clip, name="caffeine", **settings):
     """The JAX and port renderers of the scene's frame in vis mode `mode`,
     and each one's frame inputs."""
     js, ps = _scenes(name)
@@ -72,6 +75,8 @@ def _pair(mode, clip, name="caffeine"):
     for r in (jr, pr):
         if name == "caffeine":
             r.camera.distance = DISTANCE
+        for k, v in settings.items():
+            setattr(r.settings, k, v)
         r.settings.vis_mode = mode
         r.settings.clip_enabled = clip
         r.settings.clip_distance = 6.5
@@ -98,6 +103,31 @@ def test_vis_mode_matches_jax(mode, clip):
     assert (diff <= 1e-4).mean() >= 0.99, np.nonzero(diff > 1e-4)[0].tolist()
     keep = diff <= 1e-4
     assert abs(pc[keep].mean() - jc[keep].mean()) <= 1e-3 * jc[keep].mean()
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["no clip", "clip"])
+def test_stack_tracer_vis_mode2_matches_jax(clip):
+    """Under the stack tracer mode 2 is JAX's image bit for bit: the same
+    walk, the same count per ray."""
+    (jr, jf, ju, jx, jy), (pr, pf, pu, px, py) = _pair(2, clip, tracer="stack")
+    assert jf.tracer == pf.tracer == "stack"
+    with jax.disable_jit():
+        jc = np.asarray(JI.render_visualization(jr.scene, None, None, jf, ju, jx, jy,
+                                                jnp.uint32(0)))
+    pc = PI.render_visualization(pr.scene, pf, pu, px, py).numpy()
+    assert pc.shape == jc.shape == (SIZE * SIZE, 3)
+    assert pc.tobytes() == jc.tobytes()
+    assert len(np.unique(pc, axis=0)) > 10
+
+
+def test_brute_vis_mode2_draws_k_times_c():
+    """Under use_bvh=False every ray's count is K * C (the JAX package's
+    _dense_trace cost), the ramp of which mode 2 draws on every pixel."""
+    _, (pr, pf, pu, px, py) = _pair(2, False, use_bvh=False)
+    img = PI.render_visualization(pr.scene, pf, pu, px, py)
+    k_c = pr.scene.num_clusters * pr.scene.cluster_size
+    want = PI.cost_heatmap(torch.full((px.shape[0],), k_c, dtype=torch.int32))
+    assert torch.equal(img, want)
 
 
 def test_cost_heatmap_matches_jax_on_its_count():

@@ -14,9 +14,9 @@ one option the JAX CLI lacks):
   python -m webgl_raytracer_tpu_torch.app.cli serve --scene spheres1000 --port 8000
 
 What the port refuses, each with SystemExit and a message before any
-work: --tracer stack (the stack tracer is not ported yet), --devices N > 1
-(multi-GPU rendering is not ported yet) and --pdb-id (fetching from RCSB
-needs the network: pass the downloaded file with --pdb-file).
+work: --devices N > 1 (multi-GPU rendering is not ported yet) and
+--pdb-id (fetching from RCSB needs the network: pass the downloaded file
+with --pdb-file).
 """
 
 from __future__ import annotations
@@ -38,8 +38,6 @@ from ..utils import create_logger, encode_png, format_poly_count
 from .pipeline import DISPLAY_STYLES, load_molecule_scene, load_random_spheres, load_test_primitives
 
 REFUSED = {
-    "tracer": "--tracer stack: the stack tracer is not ported yet (ROADMAP Queue 1 "
-              "item 3); use --tracer wavefront",
     "devices": "--devices {n}: multi-GPU rendering is not ported yet (ROADMAP Queue 1 "
                "item 7); the port renders on one GPU",
     "pdb_id": "--pdb-id fetches from RCSB over the network, which the port does not "
@@ -102,8 +100,7 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    help="camera-forward clip plane at this distance")
     p.add_argument("--vis", type=int, default=0, choices=(0, 1, 2, 3),
                    help="0 render, 1 normals, 2 traversal cost, 3 depth")
-    p.add_argument("--tracer", default="wavefront", choices=("wavefront", "stack"),
-                   help="'stack' is refused by the port until it is ported")
+    p.add_argument("--tracer", default="wavefront", choices=("wavefront", "stack"))
     p.add_argument("--devices", type=int, default=1, metavar="N",
                    help="render over N GPUs; the port renders on one (N > 1 is "
                         "refused until multi-GPU rendering is ported)")
@@ -119,8 +116,6 @@ def _check_ported(args) -> None:
     """SystemExit with its message for an option the port refuses."""
     if getattr(args, "pdb_id", None):
         raise SystemExit(REFUSED["pdb_id"])
-    if getattr(args, "tracer", "wavefront") != "wavefront":
-        raise SystemExit(REFUSED["tracer"])
     if getattr(args, "devices", 1) > 1:
         raise SystemExit(REFUSED["devices"].format(n=args.devices))
 

@@ -29,11 +29,9 @@ a capture fails if another thread issues CUDA work meanwhile. /state,
 /envs and the hover pick read host state only (the scene's host tables).
 `asgi_app(renderer)` serves the same routes as an ASGI application.
 
-What the port refuses, each with a message and without touching the
-renderer: `tracer` other than "wavefront" and `use_bvh` false on
-/settings (the stack tracer and the brute sweep are not ported yet;
-logged as rejected settings), and /load of "pdb:ID" (fetching from RCSB
-needs the network; load a local file instead). A malformed request
+What the port refuses, with a message and without touching the
+renderer: /load of "pdb:ID" (fetching from RCSB needs the network; load a
+local file instead). A malformed request
 answers 400 and changes nothing: bad JSON, a body that is not a JSON
 object, or a field of /hover, /orbit, /fly, /light or /focus that is not
 a finite number (an integer index, a list of keys) — the JAX server
@@ -57,8 +55,6 @@ from ..utils.png import encode_png, upsample_nearest
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ENV_ASSET_DIR = os.path.join(REPO_DIR, "assets", "env")
 PROTEIN_ASSET_DIR = os.path.join(REPO_DIR, "assets", "proteins")
-UNPORTED_TRACERS = ("the stack tracer and the brute sweep are not ported yet "
-                    "(ROADMAP Queue 1 item 3)")
 NO_PDB_FETCH = ("fetching {name} from RCSB needs the network, which the port does "
                 "not use: load a local file (cli --pdb-file) or put it in "
                 "assets/proteins/ and load protein:ID")
@@ -111,6 +107,7 @@ VIEWER_HTML = """<!DOCTYPE html>
    <option value="2">cost</option><option value="3">depth</option>
   </select></label>
  <label><input type="checkbox" data-k="cast_shadows" checked> shadows</label>
+ <label><input type="checkbox" data-k="use_bvh" checked> BVH</label>
  <label><input type="checkbox" data-k="use_imported_color" checked> imported color</label>
 </fieldset>
 <fieldset><legend>material</legend>
@@ -572,14 +569,12 @@ class ViewerState:
     def update_settings(self, updates: dict) -> None:
         """Validated settings update: only RenderSettings scalar fields are
         writable, values are coerced to the field's type and enum fields
-        checked, so a malformed POST cannot wedge the next /frame.png. A
-        tracer other than "wavefront" and use_bvh false are rejected too
-        (UNPORTED_TRACERS)."""
+        checked, so a malformed POST cannot wedge the next /frame.png."""
         from ..render.config import (MATERIAL_MODES, TONE_MAPS, apply_material_preset,
                                      clip_distance_max)
 
         enums = {"material_mode": set(MATERIAL_MODES), "tone_map": set(TONE_MAPS),
-                 "tracer": {"wavefront"}}
+                 "tracer": {"wavefront", "stack"}}
         with self.lock:
             s = self.renderer.settings
             for key, value in updates.items():
@@ -589,8 +584,6 @@ class ViewerState:
                 try:
                     if isinstance(current, bool):
                         value = bool(value)
-                        if key == "use_bvh" and not value:
-                            raise ValueError(value)
                     elif isinstance(current, int):
                         value = int(value)
                     elif isinstance(current, float):
@@ -607,9 +600,7 @@ class ViewerState:
                         continue   # lights and clip state have their own routes
                 except (TypeError, ValueError):
                     if self.logger:
-                        why = (f": {UNPORTED_TRACERS}" if key in ("tracer", "use_bvh")
-                               else "")
-                        self.logger.warn(f"rejected setting {key}={value!r}{why}")
+                        self.logger.warn(f"rejected setting {key}={value!r}")
                     continue
                 if key == "max_frames":
                     value = int(min(max(value, 0), 2000))

@@ -26,7 +26,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
            "trace_closest_perray.cu", "trace_any_perray.cu",
-           "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu")
+           "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu", "trace_stack.cu")
 HEADERS = ("intersect.cuh",)
 
 # The trace kernels that have a cost form: the same source compiled with
@@ -35,10 +35,11 @@ COST_FORMS = ("trace_closest", "trace_any3", "trace_any", "trace_closest_perray"
               "trace_any_perray")
 
 # Kernel launches by kernel name; only the wrappers' CUDA launch sites add
-# to them (ops/trace.py, ops/volume.py, tools/sweep_sol.py).
+# to them (ops/trace.py, ops/volume.py, ops/traversal.py, tools/sweep_sol.py).
 launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
                           "trace_closest_perray", "trace_any_perray",
-                          "trace_closest_attrs", "sweep_sol", "volume_march")
+                          "trace_closest_attrs", "sweep_sol", "volume_march",
+                          "trace_stack_closest", "trace_stack_any")
                          + tuple(f"{name}_cost" for name in COST_FORMS), 0)
 
 # -fmad=false keeps every a*b+c rounded twice, as the plain PyTorch
@@ -47,6 +48,16 @@ launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
 # needs IEEE sqrtf and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+
+
+def compile_flags() -> tuple[str, ...]:
+    """NVCC_FLAGS and the constants the sources take from Python: the stack
+    tracer's stack size (csrc/trace_stack.cu WRT_STACK_DEPTH), the plain
+    walk's ops/traversal.STACK_DEPTH, so that both apply one overflow
+    guard."""
+    from .traversal import STACK_DEPTH
+
+    return NVCC_FLAGS + (f"-DWRT_STACK_DEPTH={STACK_DEPTH}",)
 
 
 def nvcc_path() -> str:
@@ -65,7 +76,7 @@ def nvcc_path() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(compile_flags()).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
@@ -94,7 +105,7 @@ def build(ptxas_verbose: bool = False) -> tuple[Path, float, str]:
         obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(CSRC_DIR / src)],
+            [nvcc, *compile_flags(), *extra, "-c", "-o", str(obj), str(CSRC_DIR / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     messages, failed = [], []
     for src, proc in zip(SOURCES, procs):
@@ -163,6 +174,13 @@ def library() -> ctypes.CDLL:
     lib.wrt_sweep_sol.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
     lib.wrt_volume_march.restype = i32
     lib.wrt_volume_march.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
+    # The stack walk: od, n, the seven tables, the type bits, cp, clip_on,
+    # max_steps, max_leaf, then the outputs and the stream.
+    walk = [ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32]
+    lib.wrt_trace_stack_closest.restype = i32
+    lib.wrt_trace_stack_closest.argtypes = walk + [ptr, ptr, ptr, ptr, ptr]
+    lib.wrt_trace_stack_any.restype = i32
+    lib.wrt_trace_stack_any.argtypes = walk + [ptr, ptr, ptr]
     return lib
 
 

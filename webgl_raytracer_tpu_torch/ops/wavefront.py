@@ -1,5 +1,5 @@
 """Cluster tracer front end: slab entries, the cluster SoA intersector,
-hit finalisation and the trace routing.
+hit finalisation, the brute-force sweep and the trace routing.
 
 Counterpart of webgl_raytracer_tpu/ops/wavefront.py. `cluster_entry_t`
 and `intersect_soa_t` are the same expressions as the reference (and as
@@ -9,6 +9,11 @@ query goes through ops/trace.py: a CUDA tensor takes the kernel, which
 serves every scene; a CPU tensor takes the plain version. Secondary
 closest traces and divergent (env-NEE) occlusion batches on cluster-rich
 scenes take the per-ray kernels, where the JAX package routes them.
+
+force_dense=True (the reference's useBvh=false brute-force mode) takes
+_dense_trace instead: every cluster swept for every ray, unculled, in
+plain PyTorch on any device. It reads no host value, so a frame on it is
+captured like any other.
 """
 
 from __future__ import annotations
@@ -299,6 +304,73 @@ def _finalize_hit(scene, o3, d3, t_min, clip, closest, best_row, cost,
     )
 
 
+# Rays per slice of the brute sweep: bounds its [rays, C] temporaries
+# (128 MB each at C = 128; a 1080p frame's 2,073,600 rays at once would
+# make them 1.06 GB each).
+DENSE_CHUNK = 1 << 18
+
+
+def _dense_trace(scene, o3, d3, t_min, clip, any_hit, accept_min, t_max, active):
+    """The brute sweep, the JAX package's _dense_trace: each of the K
+    clusters of cluster_soa (world coordinates) intersected with every ray
+    (intersect_soa_t), in cluster order. Closest hit: the first lane of a
+    cluster's least valid t (t > 0 and below the ray's closest), taken
+    where strictly smaller than the closest so far; finalised by
+    _finalize_hit with cost K * C and no sphere refinement. Occlusion: any
+    t in (accept_min, t_max). Inactive rays miss. The rays are swept in
+    slices of DENSE_CHUNK; the loop counts are static and nothing is read
+    back to the host."""
+    from .trace import _cluster_types
+
+    n = o3[0].shape[0]
+    device = o3[0].device
+    k, c = scene.num_clusters, scene.cluster_size
+    types = scene_types(scene)
+    ctypes = scene.trace_operands.ctype_host
+    lane = torch.arange(c, dtype=torch.int32, device=device)
+
+    def row(x, fill):
+        if x is None:
+            x = fill
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=torch.float32).expand(n)
+        return torch.full((n,), x, dtype=torch.float32, device=device)
+
+    cap = row(t_max, BIG)
+    lo_all = row(accept_min, 0.0)
+    act_all = (torch.ones(n, dtype=torch.bool, device=device) if active is None
+               else active)
+    closest_out = torch.empty(n, dtype=torch.float32, device=device)
+    row_out = torch.empty(n, dtype=torch.int32, device=device)
+    found_out = torch.empty(n, dtype=torch.bool, device=device)
+    for s in range(0, n, DENSE_CHUNK):
+        sl = slice(s, min(n, s + DENSE_CHUNK))
+        o, d, tmin = tuple(x[sl] for x in o3), tuple(x[sl] for x in d3), t_min[sl]
+        act = act_all[sl][:, None]
+        closest = cap[sl].clone(memory_format=torch.contiguous_format)
+        best = torch.full(closest.shape, -1, dtype=torch.int32, device=device)
+        found = torch.zeros(closest.shape, dtype=torch.bool, device=device)
+        for kk in range(k):
+            t_c = intersect_soa_t(_cluster_types(ctypes[kk], types), scene.cluster_soa[kk],
+                                  o, d, tmin, clip)
+            if any_hit:
+                valid = (t_c > lo_all[sl][:, None]) & (t_c < closest[:, None]) & act
+                found = found | valid.any(dim=1)
+            else:
+                valid = (t_c > 0.0) & (t_c < closest[:, None]) & act
+                t_masked = torch.where(valid, t_c, INF)
+                t_best = t_masked.min(dim=1).values
+                j = torch.where(t_masked == t_best[:, None], lane, c).min(dim=1).values
+                upd = t_best < closest
+                closest = torch.where(upd, t_best, closest)
+                best = torch.where(upd, kk * c + j, best)
+        closest_out[sl], row_out[sl], found_out[sl] = closest, best, found
+    if any_hit:
+        return found_out
+    return _finalize_hit(scene, o3, d3, t_min, clip, closest_out, row_out,
+                         cost=torch.full((n,), k * c, dtype=torch.int32, device=device))
+
+
 def _broadcast_t_min(t_min, like):
     """t_min as f32 in like's shape: a tensor converted, a number filled
     (no host value copied to the card)."""
@@ -309,7 +381,7 @@ def _broadcast_t_min(t_min, like):
 
 def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
                         secondary=False, full_record=True, with_attrs=False,
-                        impl=None, with_cost=False):
+                        impl=None, with_cost=False, force_dense=False):
     """Closest hit over the cluster SoA; rays as component triples.
     prim_slot indexes the padded cluster table ([K*C, 12]). The kernel's
     t is rounded in scene-centred coordinates; finalisation refines
@@ -331,10 +403,17 @@ def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
 
     with_cost: the record's cost is the trace's count (the kernel's cost
     form on the card); otherwise it is None. The attrs kernel has no cost
-    form, so with_attrs and with_cost do not go together."""
+    form, so with_attrs and with_cost do not go together.
+
+    force_dense: the brute sweep (_dense_trace), whose full record (cost
+    K * C) is returned whatever full_record, with_attrs and with_cost
+    ask, as in the JAX package."""
     from . import trace as T
 
     t_min = _broadcast_t_min(t_min, o3[0])
+    if force_dense:
+        return _dense_trace(scene, o3, d3, t_min, clip, any_hit=False, accept_min=None,
+                            t_max=None, active=active)
     if with_attrs and with_cost:
         raise ValueError("the attrs kernel has no cost form")
     if with_attrs:
@@ -363,14 +442,19 @@ def wf_trace_closest_v3(scene, o3, d3, t_min, clip=None, active=None,
 
 
 def wf_trace_any_v3(scene, o3, d3, t_min, t_max=BIG, accept_min=None,
-                    clip=None, active=None, divergent=False, impl=None):
+                    clip=None, active=None, divergent=False, impl=None,
+                    force_dense=False):
     """Occlusion (any hit with t in (accept_min, t_max)): bool [N].
     divergent=True marks batches whose directions scatter over the sphere
     (env-NEE occlusion); on cluster-rich scenes those go to the per-ray
-    kernel (ops/trace.perray_auto_any), as the JAX package routes them."""
+    kernel (ops/trace.perray_auto_any), as the JAX package routes them.
+    force_dense: the brute sweep (_dense_trace)."""
     from . import trace as T
 
     t_min = _broadcast_t_min(t_min, o3[0])
+    if force_dense:
+        return _dense_trace(scene, o3, d3, t_min, clip, any_hit=True,
+                            accept_min=accept_min, t_max=t_max, active=active)
     return T.trace_any(scene, o3, d3, t_min, t_max=t_max, accept_min=accept_min,
                        clip=clip, active=active,
                        perray=T.perray_auto_any(scene, divergent), impl=impl)
@@ -379,7 +463,9 @@ def wf_trace_any_v3(scene, o3, d3, t_min, t_max=BIG, accept_min=None,
 def wf_trace_any3_v3(scene, o3, d3s, t_min, accept_min=None, clip=None,
                      actives=(None, None, None), impl=None):
     """Occlusion of THREE rays per lane sharing one origin (the 3-light
-    shadow fan) in one launch: three bool [N] tensors."""
+    shadow fan) in one launch: three bool [N] tensors. The brute sweep
+    never comes here: under use_bvh=False the integrator traces the fan as
+    one [3N] any-hit batch (wf_trace_any_v3, force_dense)."""
     from . import trace as T
 
     t_min = _broadcast_t_min(t_min, o3[0])

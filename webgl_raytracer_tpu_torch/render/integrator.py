@@ -45,8 +45,16 @@ render_visualization draws the debug views (vis modes 1-3) from the
 pixel rays' closest hits: normals, a heatmap of the trace's count
 (ops/trace.py, "Counts") and depth.
 
-Not ported yet, and raising NotImplementedError when asked for: the stack
-tracer and the brute-force (use_bvh=False) sweep.
+The tracers (_closest_hit, _any_hit), as the JAX package dispatches them:
+flags.tracer "wavefront" takes the cluster tracer (ops/wavefront.py, the
+kernels of ops/trace.py), and with use_bvh=False its brute sweep
+(force_dense); "stack" takes the BVH walk (ops/traversal.py, the
+trace_stack kernels). The stack walk and the brute sweep shoot the
+3-light shadow fan as one concatenated any-hit batch of the enabled
+lights' rays (the culled cluster tracer fuses it: trace_any3), never take
+the binned transport or the attrs rows, and a stack hit's rows, colour
+and triangle normals come from the unified table (walk_tables) its slot
+indexes.
 
 No host reads. Where the JAX package skips work with
 `lax.cond(jnp.any(mask))`, this module runs the masked work anyway: a
@@ -70,6 +78,7 @@ import torch
 
 from ..ops import brdf as B
 from ..ops import sampling as S
+from ..ops import traversal as ST
 from ..ops import vec3 as V
 from ..ops.envmap import env_pdf_v3, sample_env_direction_v3, sample_env_radiance_v3
 from ..ops.rng import init_seed, rand, rand2
@@ -86,15 +95,6 @@ NEE_CLAMP = 20.0
 THROUGHPUT_CLAMP = 10.0
 
 
-def check_supported(flags) -> None:
-    """Raise for settings whose code paths are not ported yet."""
-    if flags.tracer != "wavefront":
-        raise NotImplementedError(f"tracer {flags.tracer!r} is not ported yet")
-    if not flags.use_bvh:
-        raise NotImplementedError(
-            "the brute-force use_bvh=False sweep is not ported yet")
-
-
 def _clip_tuple(flags, u):
     if not flags.clip_enabled:
         return None
@@ -106,12 +106,43 @@ def _clip_tuple(flags, u):
 TRANSPORT_KNOBS = ("WRT_CHUNKS", "WRT_BINNED", "WRT_BIN_CAP_DIV", "WRT_ATTRS")
 
 
-def _use_attrs(scene) -> bool:
+def _use_attrs(scene, flags) -> bool:
     """Shade from the attrs kernel's winner rows instead of gathering
     after the trace (WRT_ATTRS=1; off by default, as in the JAX package,
-    which measured it slower on its TPU). Frames are the same bit for bit
-    either way."""
-    return os.environ.get("WRT_ATTRS") == "1" and kernel_supported(scene)
+    which measured it slower on its TPU), on the culled cluster tracer
+    only. Frames are the same bit for bit either way."""
+    return (os.environ.get("WRT_ATTRS") == "1" and _cluster_tracer(flags)
+            and kernel_supported(scene))
+
+
+def _cluster_tracer(flags) -> bool:
+    """The culled cluster tracer, the one the fused fan, the binned
+    transport and the attrs rows belong to."""
+    return flags.tracer == "wavefront" and flags.use_bvh
+
+
+def _closest_hit(scene, flags, o3, d3, t_min, clip, active=None, full_record=True,
+                 with_attrs=False, secondary=False, impl=None, with_cost=False):
+    """The tracer dispatch (the JAX package's _closest_hit): the cluster
+    tracer, its brute sweep under use_bvh=False, or the stack walk, whose
+    record always carries its count."""
+    if flags.tracer == "wavefront":
+        return wf_trace_closest_v3(scene, o3, d3, t_min, clip, active=active,
+                                   secondary=secondary, full_record=full_record,
+                                   with_attrs=with_attrs, impl=impl, with_cost=with_cost,
+                                   force_dense=not flags.use_bvh)
+    return ST.trace_closest(scene, o3, d3, t_min, clip, active=active, impl=impl)
+
+
+def _any_hit(scene, flags, o3, d3, t_min, clip, accept_min=None, t_max=BIG, active=None,
+             divergent=False, impl=None):
+    """Occlusion through the flags' tracer (the JAX package's _any_hit)."""
+    if flags.tracer == "wavefront":
+        return wf_trace_any_v3(scene, o3, d3, t_min, t_max=t_max, accept_min=accept_min,
+                               clip=clip, active=active, divergent=divergent, impl=impl,
+                               force_dense=not flags.use_bvh)
+    return ST.trace_any(scene, o3, d3, t_min, t_max=t_max, accept_min=accept_min,
+                        clip=clip, active=active, impl=impl)
 
 
 def _cylinder_normal_v3(pos, p1, p2, hit_type):
@@ -137,15 +168,21 @@ def _surface_attributes(scene, flags, rec, pos, direction, u, attrs=None):
 
     attrs: the winners' attribute rows (ops/trace.attr_operand layout);
     they replace every gather here (cluster row, colour, vertex normals)
-    with the same values."""
+    with the same values. A stack hit's slot indexes the unified table
+    (the JAX package's _fetch_hit_rows)."""
     ptype = rec.prim_type
-    if attrs is None:
-        slot = torch.clamp_min(rec.prim_slot, 0).long()
+    slot = torch.clamp_min(rec.prim_slot, 0).long()
+    if attrs is not None:
+        row = attrs
+        imported_color = (attrs[:, 12], attrs[:, 13], attrs[:, 14])
+    elif flags.tracer == "wavefront":
         row = scene.cluster_prims.reshape(-1, 12)[slot]
         imported_color = V.from_array(scene.cluster_color[slot])
     else:
-        row = attrs
-        imported_color = (attrs[:, 12], attrs[:, 13], attrs[:, 14])
+        tables = scene.walk_tables
+        row = torch.cat([tables.prim_a[slot], tables.prim_b[slot], tables.prim_c[slot]],
+                        dim=1)
+        imported_color = V.from_array(tables.prim_color[slot])
     pa = (row[:, 0], row[:, 1], row[:, 2])
     pb = (row[:, 4], row[:, 5], row[:, 6])
     pc = (row[:, 8], row[:, 9], row[:, 10])
@@ -252,7 +289,6 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
     bounce_body(bounce: int, state, rec=None, attrs=None, use_attrs=False)
     -> state. env: EnvBuffers when flags.use_env; vol: VolumeBuffers
     (ops/volume.py) when flags.volume_enabled."""
-    check_supported(flags)
     if flags.use_env and env is None:
         raise ValueError("flags.use_env is set but no environment was given")
     if flags.volume_enabled and vol is None:
@@ -271,9 +307,9 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
         if rec is None:
             # secondary: bounce rays take the per-ray routing on
             # cluster-rich scenes (the JAX package's _trace_or_skip).
-            rec = wf_trace_closest_v3(scene, st.origin, st.direction, u.t_min, clip,
-                                      active=st.alive, secondary=bounce > 0,
-                                      with_attrs=use_attrs, impl=impl)
+            rec = _closest_hit(scene, flags, st.origin, st.direction, u.t_min, clip,
+                               active=st.alive, secondary=bounce > 0,
+                               with_attrs=use_attrs, impl=impl)
             if use_attrs:
                 rec, attrs = rec
         hit = rec.prim_type >= 0
@@ -378,7 +414,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
 
         occluded_by_light = {}
         noccl = st.noccl
-        if flags.cast_shadows and light_samples:
+        if flags.cast_shadows and light_samples and _cluster_tracer(flags):
             for s in light_samples:
                 noccl = noccl + s[4].sum()
             d3s, acts = _fan_query(light_samples, n, device)
@@ -387,6 +423,19 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
                                     actives=acts, impl=impl)
             for j, s in enumerate(light_samples):
                 occluded_by_light[s[0]] = occ3[j]
+        elif flags.cast_shadows and light_samples:
+            # The enabled lights' rays as one concatenated batch (the JAX
+            # package's path where its fused fan does not run).
+            m = len(light_samples)
+            o_cat = tuple(torch.cat([shadow_origin[c]] * m) for c in range(3))
+            d_cat = tuple(torch.cat([s[1][c] for s in light_samples]) for c in range(3))
+            act_cat = torch.cat([s[4] for s in light_samples])
+            noccl = noccl + act_cat.sum()
+            occ_cat = _any_hit(scene, flags, o_cat, d_cat, u.t_min, clip,
+                               accept_min=shadow_min.expand(m * n), active=act_cat,
+                               impl=impl)
+            for j, s in enumerate(light_samples):
+                occluded_by_light[s[0]] = occ_cat[j * n:(j + 1) * n]
 
         for i, ldir, l_pdf, ndl, candidate in light_samples:
             lit = candidate & ~occluded_by_light[i] if flags.cast_shadows else candidate
@@ -421,9 +470,8 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
             ndl_e = V.dot(sn, env_dir)
             candidate = shade_lane & (ndl_e > 0.0)
             noccl = noccl + candidate.sum()
-            occluded = wf_trace_any_v3(scene, shadow_origin, env_dir, u.t_min, t_max=BIG,
-                                       clip=clip, active=candidate, divergent=True,
-                                       impl=impl)
+            occluded = _any_hit(scene, flags, shadow_origin, env_dir, u.t_min, clip,
+                                t_max=BIG, active=candidate, divergent=True, impl=impl)
             open_sky = candidate & ~occluded
             spec, f = _ggx_eval(sn, v, env_dir, rough, f0)
             diff = B.eval_diffuse_brdf_v3(sn, v, env_dir, base_color, diff_rough, wrap)
@@ -574,7 +622,7 @@ def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None,
     attrs-kernel rows. Without first_rec, _use_attrs decides."""
     n = origin0[0].shape[0]
     use_attrs = (first_attrs is not None if first_rec is not None
-                 else _use_attrs(scene))
+                 else _use_attrs(scene, flags))
     bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl, vol=vol)
     st = _initial_state(seed0, origin0, dir0, origin0[0].device)
     for bounce in range(flags.max_bounces):
@@ -687,8 +735,10 @@ def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
     """The block-permuted chunked transport: rays move hit-first in
     _PERM_BLOCK blocks, then each chunk runs trace_paths from its bounce-0
     record, rebuilt per chunk from (t, slot), or from (t, attrs) on the
-    attrs path (no gather), and the colours move back. Returns (radiance
-    triple, (path rays, occlusion rays))."""
+    attrs path (no gather), and the colours move back. The stack tracer's
+    record moves whole: its slots index another table and its t and extra
+    are not _finalize_hit's. Returns (radiance triple, (path rays,
+    occlusion rays))."""
     n = origin[0].shape[0]
     size = n // chunks
     g = _PERM_BLOCK if (n % _PERM_BLOCK == 0 and size % _PERM_BLOCK == 0) else 1
@@ -703,22 +753,30 @@ def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
         def gather(a):
             return a[perm]
 
-    last = rec0.prim_slot if attrs0 is None else attrs0
-    state = [gather(a) for a in (seed, *origin, *direction, rec0.t, last)]
+    slim = flags.tracer == "wavefront"
+    if attrs0 is not None:
+        last = (attrs0,)
+    elif slim:
+        last = (rec0.prim_slot,)
+    else:
+        last = (rec0.prim_type, rec0.prim_local, rec0.prim_slot, rec0.extra, rec0.cost)
+    state = [gather(a) for a in (seed, *origin, *direction, rec0.t, *last)]
     colors = []
     counter = torch.zeros((), dtype=torch.int64, device=seed.device)
     nrays, noccl = counter, counter.clone()
     for c in range(chunks):
         sl = slice(c * size, (c + 1) * size)
-        seed_c, ox, oy, oz, dx, dy, dz, t_c, last_c = (a[sl] for a in state)
+        seed_c, ox, oy, oz, dx, dy, dz, t_c, *last_c = (a[sl] for a in state)
         origin_c, direction_c = (ox, oy, oz), (dx, dy, dz)
         tmin_c = u.t_min.expand(size)
-        if attrs0 is None:
-            attrs_c = None
+        attrs_c = None
+        if not slim:
+            rec_c = HitRecord(t_c, *last_c)
+        elif attrs0 is None:
             rec_c = _finalize_hit(scene, origin_c, direction_c, tmin_c, clip, t_c,
-                                  last_c, cost=None, refine_sphere_t=True)
+                                  last_c[0], cost=None, refine_sphere_t=True)
         else:
-            attrs_c = last_c
+            attrs_c = last_c[0]
             rec_c = _finalize_hit(scene, origin_c, direction_c, tmin_c, clip, t_c,
                                   attr_slot(attrs_c), cost=None, refine_sphere_t=True,
                                   row=attrs_c[:, :12])
@@ -740,9 +798,11 @@ def _use_binned(scene, flags, n) -> bool:
     """The binned transport: the default wherever the kernels run
     (WRT_BINNED=1 forces it, =0 turns it off), for batches of whole
     1024-ray blocks and at least one bounce; never for volume frames,
-    which march from every lane's camera ray (the JAX package's rule)."""
+    which march from every lane's camera ray, and only on the culled
+    cluster tracer (the JAX package's rules)."""
     knob = os.environ.get("WRT_BINNED")
-    if knob == "0" or flags.volume_enabled or n % 1024 != 0 or flags.max_bounces < 1:
+    if (knob == "0" or flags.volume_enabled or not _cluster_tracer(flags)
+            or n % 1024 != 0 or flags.max_bounces < 1):
         return False
     return knob == "1" or kernel_supported(scene)
 
@@ -840,7 +900,6 @@ def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=Non
     Returns (radiance triple, (path rays, occlusion rays), overflow): a 0-d
     int64 tensor, 1 where the binned buffer overflowed (the sample must be
     redone with binned=False), else 0."""
-    check_supported(flags)
     seed, origin, direction = generate_camera_rays(u, flags, px, py, frame_index, s)
     n = px.shape[0]
     no_overflow = torch.zeros((), dtype=torch.int64, device=px.device)
@@ -851,12 +910,12 @@ def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=Non
         return radiance, rays, no_overflow
     clip = _clip_tuple(flags, u)
     attrs0 = None
-    if _use_attrs(scene):
-        rec0, attrs0 = wf_trace_closest_v3(scene, origin, direction, u.t_min, clip,
-                                           with_attrs=True, impl=impl)
+    if _use_attrs(scene, flags):
+        rec0, attrs0 = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
+                                    with_attrs=True, impl=impl)
     else:
-        rec0 = wf_trace_closest_v3(scene, origin, direction, u.t_min, clip,
-                                   full_record=False, impl=impl)
+        rec0 = _closest_hit(scene, flags, origin, direction, u.t_min, clip,
+                            full_record=False, impl=impl)
     if binned and attrs0 is None and _use_binned(scene, flags, n):
         return _binned_transport(scene, env, flags, u, seed, origin, direction,
                                  rec0, clip, impl=impl)
@@ -949,13 +1008,14 @@ def render_visualization(scene, flags, u, px, py, frame_index=0, env=None, impl=
     """The debug view of flags.vis_mode, f32[B,3] (the JAX package's
     render_visualization): 1 normals, (n + 1) / 2, black on a miss; 2 the
     heatmap of the primary closest hit's count (cost_heatmap; the
-    trace_closest_cost kernel on the card); 3 depth, 1 - clip(t / 10, 0,
-    1), 0 on a miss. The rays are pixel_centre_rays, clip plane applied;
-    no env, volume or frame index enters the view, and any other mode is
-    black."""
+    trace_closest_cost kernel on the card, the walk's own count under the
+    stack tracer, K * C under use_bvh=False); 3 depth, 1 - clip(t / 10,
+    0, 1), 0 on a miss. The rays are pixel_centre_rays, clip plane
+    applied; no env, volume or frame index enters the view, and any other
+    mode is black."""
     origin, direction = pixel_centre_rays(u, px, py)
-    rec = wf_trace_closest_v3(scene, origin, direction, u.t_min, _clip_tuple(flags, u),
-                              impl=impl, with_cost=flags.vis_mode == 2)
+    rec = _closest_hit(scene, flags, origin, direction, u.t_min, _clip_tuple(flags, u),
+                       impl=impl, with_cost=flags.vis_mode == 2)
     hit = rec.prim_type >= 0
     if flags.vis_mode == 1:
         pos = V.add(origin, V.scale(direction, rec.t))

@@ -19,11 +19,14 @@ Picking and the hover overlay (scene/pick.py, scene/overlay.py) read
 `SceneBuffers.pick_tables`: host tables in world coordinates, as the JAX
 package's SceneBuffers holds them — the unified leaf-4 BVH
 (node_bmin/bmax/meta), the leaf-ordered primitive table (prim_a/b/c,
-prim_type, prim_local) and the per-type tables (tri_verts,
-sphere_centers/radii, cyl_p1/p2/radii). Nothing on the card reads them,
-so compile_scene does not build them: the first pick, hover or read of
-the tables builds them once, for the scene and every .to() copy of it.
-They stay numpy arrays on the host whatever the scene's device.
+prim_type, prim_local, prim_color) and the per-type tables (tri_verts,
+sphere_centers/radii, cyl_p1/p2/radii). compile_scene does not build
+them: the first pick, hover or read of the tables builds them once, for
+the scene and every .to() copy of it. They stay numpy arrays on the host
+whatever the scene's device. The stack tracer (ops/traversal.py) walks
+the BVH and the primitive table on the scene's device:
+`SceneBuffers.walk_tables`, copied from the host tables on the first
+stack trace and kept with the scene, as trace_operands is.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import Geometry
-from .bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE, build_bvh
+from .bvh import DEFAULT_MAX_DEPTH, PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE, build_bvh
 
 # Tensor fields of SceneBuffers (the rest are python ints).
 TENSOR_FIELDS = ("cluster_prims", "cluster_soa", "cluster_color",
@@ -47,7 +50,7 @@ TENSOR_FIELDS = ("cluster_prims", "cluster_soa", "cluster_color",
 # PickTables' numpy fields (world coordinates) and their dtypes.
 HOST_FIELDS = {"node_bmin": np.float32, "node_bmax": np.float32, "node_meta": np.int32,
                "prim_a": np.float32, "prim_b": np.float32, "prim_c": np.float32,
-               "prim_type": np.int32, "prim_local": np.int32,
+               "prim_type": np.int32, "prim_local": np.int32, "prim_color": np.float32,
                "tri_verts": np.float32, "sphere_centers": np.float32,
                "sphere_radii": np.float32, "cyl_p1": np.float32, "cyl_p2": np.float32,
                "cyl_radii": np.float32}
@@ -68,6 +71,7 @@ class PickTables:
     prim_c: np.ndarray              # f32[Np,4]
     prim_type: np.ndarray           # i32[Np]
     prim_local: np.ndarray          # i32[Np] per-type index
+    prim_color: np.ndarray          # f32[Np,3] base colour
     tri_verts: np.ndarray           # f32[max(Nt,1),3,3]
     sphere_centers: np.ndarray      # f32[max(Ns,1),3]
     sphere_radii: np.ndarray        # f32[max(Ns,1)]
@@ -78,6 +82,27 @@ class PickTables:
     @property
     def node_count(self) -> int:
         return int(self.node_bmin.shape[0])
+
+
+# The walk's tables (WalkTables' fields), copied from PickTables.
+WALK_FIELDS = ("node_bmin", "node_bmax", "node_meta", "prim_a", "prim_b", "prim_c",
+               "prim_type", "prim_local", "prim_color")
+
+
+@dataclass
+class WalkTables:
+    """The stack walk's tables on the scene's device, in world
+    coordinates: PickTables' BVH and leaf-ordered primitive table."""
+
+    node_bmin: torch.Tensor         # f32[Nn,3]
+    node_bmax: torch.Tensor         # f32[Nn,3]
+    node_meta: torch.Tensor         # i32[Nn,3] (leftFirst, primCount, rightChild)
+    prim_a: torch.Tensor            # f32[Np,4]
+    prim_b: torch.Tensor            # f32[Np,4]
+    prim_c: torch.Tensor            # f32[Np,4]
+    prim_type: torch.Tensor         # i32[Np]
+    prim_local: torch.Tensor        # i32[Np]
+    prim_color: torch.Tensor        # f32[Np,3]
 
 
 @dataclass
@@ -126,6 +151,14 @@ class SceneBuffers:
 
         return scene_operands(self)
 
+    @cached_property
+    def walk_tables(self) -> WalkTables:
+        """The stack walk's tables on this scene's device, copied from the
+        host tables once per scene (ops/traversal.py)."""
+        tables = self.pick_tables
+        return WalkTables(**{name: torch.tensor(getattr(tables, name), device=self.device)
+                             for name in WALK_FIELDS})
+
 
 def scene_from_numpy(fields_: dict, device=None) -> SceneBuffers:
     """SceneBuffers from the JAX package's SceneBuffers fields as numpy
@@ -136,6 +169,9 @@ def scene_from_numpy(fields_: dict, device=None) -> SceneBuffers:
     means cuda:0."""
     if "pick_source" in fields_:
         return _scene(fields_, device, fields_["pick_source"])
+    if int(fields_.get("max_depth", DEFAULT_MAX_DEPTH)) != DEFAULT_MAX_DEPTH:
+        raise ValueError(f"the port's stack walk takes BVHs of depth at most "
+                         f"{DEFAULT_MAX_DEPTH}, not {fields_['max_depth']}")
     tables = PickTables(**{name: np.asarray(fields_[name], dtype)
                            for name, dtype in HOST_FIELDS.items()})
     return _scene(fields_, device, lambda: tables)
@@ -207,18 +243,20 @@ def compile_scene(geometry: Geometry | None = None, tri_verts=None,
     )
     # Built on first use, from copies: the caller may reuse its arrays.
     return _scene(fields_, device,
-                  cache(partial(_pick_tables, copy.deepcopy(geometry), tv.copy())))
+                  cache(partial(_pick_tables, copy.deepcopy(geometry), tv.copy(),
+                                tc.copy())))
 
 
 def _at_least_one(a: np.ndarray) -> np.ndarray:
     return a if a.shape[0] > 0 else _pad_rows(a, 1)
 
 
-def _pick_tables(geometry: Geometry, tv: np.ndarray) -> PickTables:
-    """The host tables of picking, as the JAX package's compile_scene
-    builds them: the unified leaf-4 BVH over all primitives, its
-    leaf-ordered primitive table and the per-type tables (at least one
-    row each)."""
+def _pick_tables(geometry: Geometry, tv: np.ndarray, tc: np.ndarray) -> PickTables:
+    """The host tables of picking and the stack walk, as the JAX package's
+    compile_scene builds them: the unified leaf-4 BVH over all primitives
+    (depth at most DEFAULT_MAX_DEPTH, which ops/traversal.STACK_DEPTH is
+    sized for), its leaf-ordered primitive table and the per-type tables
+    (at least one row each). tc: the triangles' colours."""
     bvh = build_bvh(tri_verts=tv, sphere_centers=geometry.sphere_centers,
                     sphere_radii=geometry.sphere_radii, cyl_p1=geometry.cyl_p1,
                     cyl_p2=geometry.cyl_p2, cyl_radii=geometry.cyl_radii)
@@ -229,6 +267,7 @@ def _pick_tables(geometry: Geometry, tv: np.ndarray) -> PickTables:
     prim_c = np.zeros((n, 4), np.float32)
     prim_type = np.zeros(n, np.int32)
     prim_local = np.zeros(n, np.int32)
+    prim_color = np.zeros((n, 3), np.float32)
     if bvh.prim_count:
         gid = bvh.prim_order
         ptype = np.where(gid < nt, PRIM_TRIANGLE,
@@ -246,10 +285,13 @@ def _pick_tables(geometry: Geometry, tv: np.ndarray) -> PickTables:
         prim_a[cyl, :3] = geometry.cyl_p1[local[cyl]]
         prim_a[cyl, 3] = geometry.cyl_radii[local[cyl]]
         prim_b[cyl, :3] = geometry.cyl_p2[local[cyl]]
+        prim_color[tri] = tc[local[tri]]
+        prim_color[sph] = geometry.sphere_colors[local[sph]]
+        prim_color[cyl] = geometry.cyl_colors[local[cyl]]
     return PickTables(
         node_bmin=bvh.node_bmin, node_bmax=bvh.node_bmax, node_meta=bvh.node_meta,
         prim_a=prim_a, prim_b=prim_b, prim_c=prim_c, prim_type=prim_type,
-        prim_local=prim_local, tri_verts=_at_least_one(tv),
+        prim_local=prim_local, prim_color=prim_color, tri_verts=_at_least_one(tv),
         sphere_centers=_at_least_one(geometry.sphere_centers),
         sphere_radii=_at_least_one(geometry.sphere_radii),
         cyl_p1=_at_least_one(geometry.cyl_p1), cyl_p2=_at_least_one(geometry.cyl_p2),
