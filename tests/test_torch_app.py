@@ -465,7 +465,6 @@ def test_cli_render_ascii_png_checkpoint_and_bench(tmp_path, capsys):
 
 
 REFUSED = {
-    "--devices 2": (["--devices", "2"], "Queue 1 item 7"),
     "--pdb-id": (["--pdb-id", "1STP"], "--pdb-file"),
 }
 
@@ -474,10 +473,9 @@ REFUSED = {
 @pytest.mark.parametrize("option", list(REFUSED))
 def test_cli_refuses_unported_options(option, command):
     extra, message = REFUSED[option]
-    scene = [] if option == "--pdb-id" else ["--scene", "primitives"]
     pick = ["--px", "1", "--py", "1"] if command == "pick" else []
     with pytest.raises(SystemExit) as exc:
-        PCLI.main([command, *scene, *extra, *pick, "--device", "cpu"])
+        PCLI.main([command, *extra, *pick, "--device", "cpu"])
     assert message in str(exc.value.code)
 
 

@@ -995,3 +995,52 @@ def test_tracer_graph_frames_equal_eager_frames(device, settings):
             f + 1.0, device=device)
         rays = [rays[0] + int(p), rays[1] + int(o)]
     assert torch.equal(r._accum, acc) and list(r.ray_counts) == rays
+
+
+# Launches on the tensors' own card (ops/kernels.launch, Renderer._captured).
+
+@pytest.fixture(scope="module")
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the kernels and a captured frame run on "
+                    "cuda:1 while cuda:0 is current")
+    return torch.device("cuda", 1)
+
+
+def _card_results(card):
+    """trace_closest, trace_any3, volume_march and trace_stack_closest on
+    `card`, and two captured frames of a Renderer there, all with cuda:0
+    current; returns their outputs on the host and the ray counts, after
+    checking that each kernel launched and the frame was captured once."""
+    from webgl_raytracer_tpu_torch.ops import traversal as PT
+    from webgl_raytracer_tpu_torch.ops import volume as PV
+
+    torch.cuda.set_device(0)
+    scene = _compile("caffeine+tris", card)
+    o3, d3s, acts, tmin = _fan(1013, 3, card, spread=0.4)
+    o, d, ts, tp, act = _march_rays(4096, card)
+    scalars = [torch.tensor(v, device=card) for v in (1e-4, 2.0, 1.0, 0.5, 0.0)]
+    before = dict(T.launches)
+    t, row = T.trace_closest(scene, o3, d3s[0], tmin, active=acts[0])
+    occ = T.trace_any3(scene, o3, d3s, tmin, actives=acts)
+    kr, kt = PV.march_volume(_volume(card), o, d, ts, scalars[0],
+                             torch.tensor([0.435, 0.643, 1.0], device=card), *scalars[1:],
+                             tp, act, 256)
+    rec = PT.trace_closest(scene, o3, d3s[0], tmin, active=acts[0])
+    r = Renderer(scene, width=64, height=64, device=card)
+    r.render_frames(2)
+    torch.cuda.synchronize(card)
+    assert torch.cuda.current_device() == 0
+    for name in ("trace_closest", "trace_any3", "volume_march", "trace_stack_closest"):
+        assert T.launches[name] > before[name], name
+    assert r.stats["captures"] == 1 and r._accum.device == card
+    outs = (t, row, *occ, *kr, *kt, rec.t, rec.prim_slot, r._accum)
+    return [x.cpu().numpy().tobytes() for x in outs], r.ray_counts
+
+
+def test_kernels_and_captured_frames_run_on_their_tensors_card(device, second_card):
+    """Each kernel launches on its operands' card and a Renderer captures
+    and replays on its own card while another card is current: the same
+    calls on cuda:1 equal those on cuda:0 bit for bit."""
+    on_first, on_second = _card_results(device), _card_results(second_card)
+    assert on_first == on_second

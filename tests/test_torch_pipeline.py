@@ -139,8 +139,9 @@ def test_pipeline_oracle_and_tool_import_without_jax():
     renders it on the CPU, runs its oracle on a few pixels, loads caffeine
     with its SES (the device marching cubes too) and with its density
     volume and renders the volume frame, renders a vis mode 2 frame, runs
-    the cost profile tool with --device cpu, imports the parity tool, and
-    loads no module of JAX or of the JAX package."""
+    the cost profile tool with --device cpu, imports the parity tool,
+    renders a frame on a mesh of two CPU shards (parallel/), and loads no
+    module of JAX or of the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['webgl_raytracer_tpu'] = None\n"
@@ -179,6 +180,9 @@ def test_pipeline_oracle_and_tool_import_without_jax():
         "from webgl_raytracer_tpu_torch.tools import cost_profile\n"
         "assert cost_profile.main(['--scene', 'spheres600', '--width', '16', '--height',\n"
         "                          '16', '--perray', '--device', 'cpu']) == 0\n"
+        "from webgl_raytracer_tpu_torch.parallel import make_mesh\n"
+        "r = Renderer(vol.scene, width=8, height=8, mesh=make_mesh(['cpu', 'cpu']))\n"
+        "assert r.render(1).mean() > 0 and len(r._shards) == 2\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or (m.split('.')[0] == 'webgl_raytracer_tpu' and sys.modules[m] is not None))\n"
         "assert not bad, bad\n"

@@ -20,6 +20,9 @@ Layout mirrors the reference:
            picking through its camera, and the reference oracle (numpy
            transliteration of the shader, its all-pairs trace optionally
            on the card)
+  parallel/ the tile mesh: scene copied to every card, each frame's rays
+           split into one shard a card (Renderer(mesh=...), --devices N),
+           samples split by render_spp_sharded
   tools/   the sweep-rate probe and the parity tool (renderer vs oracle)
   utils/   the ring logger, display formatting, the stdlib PNG codec
   csrc/    CUDA sources of the kernels, and the C++ BVH builder

@@ -13,10 +13,12 @@ one option the JAX CLI lacks):
   python -m webgl_raytracer_tpu_torch.app.cli info --pdb-file TSTP.pdb --style cartoon
   python -m webgl_raytracer_tpu_torch.app.cli serve --scene spheres1000 --port 8000
 
-What the port refuses, each with SystemExit and a message before any
-work: --devices N > 1 (multi-GPU rendering is not ported yet) and
---pdb-id (fetching from RCSB needs the network: pass the downloaded file
-with --pdb-file).
+--devices N renders over the first N cards (parallel/mesh.py: the scene
+copied to each, the rays split into one contiguous shard a card), or
+with --device cpu over N shards on the CPU; more cards than are visible
+is refused. The port refuses --pdb-id with SystemExit and a message
+before any work: fetching from RCSB needs the network, so pass the
+downloaded file with --pdb-file.
 """
 
 from __future__ import annotations
@@ -32,14 +34,13 @@ from ..device import card_line
 from ..env import EnvironmentController
 from ..models import get_builtin_molecule, parse_auto_detect
 from ..models.molecular import BUILTIN_MOLECULE_NAMES
+from ..parallel import make_mesh
 from ..render import Renderer, RenderSettings
 from ..render.picking import hover_at_pixel
 from ..utils import create_logger, encode_png, format_poly_count
 from .pipeline import DISPLAY_STYLES, load_molecule_scene, load_random_spheres, load_test_primitives
 
 REFUSED = {
-    "devices": "--devices {n}: multi-GPU rendering is not ported yet (ROADMAP Queue 1 "
-               "item 7); the port renders on one GPU",
     "pdb_id": "--pdb-id fetches from RCSB over the network, which the port does not "
               "use: download the file and pass it with --pdb-file",
 }
@@ -102,8 +103,10 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    help="0 render, 1 normals, 2 traversal cost, 3 depth")
     p.add_argument("--tracer", default="wavefront", choices=("wavefront", "stack"))
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="render over N GPUs; the port renders on one (N > 1 is "
-                        "refused until multi-GPU rendering is ported)")
+                   help="render distributed over the first N GPUs (with --device "
+                        "cpu: N CPU shards): scene copied to each, rays "
+                        "tile-sharded over a 1-D mesh (parallel/mesh.py). "
+                        "Default 1 = single device")
     p.add_argument("--render-scale", type=float, default=1.0,
                    help="internal render resolution scale (renderScale)")
     p.add_argument("--fast-scale", type=float, default=0.25,
@@ -113,11 +116,12 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
 
 
 def _check_ported(args) -> None:
-    """SystemExit with its message for an option the port refuses."""
+    """SystemExit with its message, before any work, for an option the
+    port refuses or more cards than are visible."""
     if getattr(args, "pdb_id", None):
         raise SystemExit(REFUSED["pdb_id"])
     if getattr(args, "devices", 1) > 1:
-        raise SystemExit(REFUSED["devices"].format(n=args.devices))
+        _mesh_devices(args)
 
 
 def _load_scene(args, logger):
@@ -198,10 +202,11 @@ def _make_renderer(args, loaded, logger) -> Renderer:
         env = EnvironmentController(logger=logger, device=args.device).load_analytic_sky(
             **sky_kwargs(args))
 
+    mesh = _mesh(args, logger) if args.devices > 1 else None
     volume = (loaded.volume.to_device_buffers(args.device)
               if loaded.volume is not None else None)
     r = Renderer(loaded.scene, settings=settings, env=env, volume=volume,
-                 width=args.width, height=args.height, device=args.device)
+                 width=args.width, height=args.height, device=args.device, mesh=mesh)
     if args.render_scale != 1.0:
         r.set_scale(args.render_scale)
     if args.focus is not None:
@@ -214,6 +219,25 @@ def _make_renderer(args, loaded, logger) -> Renderer:
     if args.orbit:
         r.camera.drag(args.orbit[0], args.orbit[1])
     return r
+
+
+def _mesh_devices(args) -> list:
+    """The devices of --devices N: the first N cards, or N CPU shards with
+    --device cpu. SystemExit when fewer cards are visible."""
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        return [torch.device("cpu")] * args.devices
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < args.devices:
+        raise SystemExit(f"--devices {args.devices} requested but only {visible} "
+                         "cuda device(s) visible")
+    return [torch.device("cuda", i) for i in range(args.devices)]
+
+
+def _mesh(args, logger):
+    devices = _mesh_devices(args)
+    logger.info(f"Distributed over {args.devices} {devices[0].type} devices "
+                "(tile-sharded mesh)")
+    return make_mesh(devices)
 
 
 def save_png(path: str, image_u8) -> None:
@@ -268,10 +292,11 @@ def cmd_bench(args) -> int:
     r = _make_renderer(args, loaded, logger)
     r.settings.max_frames = 10 ** 9
     cuda = r.device.type == "cuda"
+    devices = list(dict.fromkeys(r.mesh.devices if r.mesh is not None else (r.device,)))
 
     def sync():
-        if cuda:
-            torch.cuda.synchronize(r.device)
+        for d in devices if cuda else ():
+            torch.cuda.synchronize(d)
 
     n = max(1, args.frames)
     r.render_frames(n)
@@ -287,7 +312,8 @@ def cmd_bench(args) -> int:
         "mpixels_per_s": args.width * args.height / best / 1e6,
         "resolution": f"{args.width}x{args.height}",
         "device": torch.cuda.get_device_name(r.device) if cuda else str(r.device),
-        "card": card_line(r.device),
+        "card": (card_line(r.device) if len(devices) == 1
+                 else "; ".join(f"{d}: {card_line(d)}" for d in devices)),
         "devices": args.devices,
     }))
     return 0

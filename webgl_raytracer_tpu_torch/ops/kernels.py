@@ -35,7 +35,8 @@ COST_FORMS = ("trace_closest", "trace_any3", "trace_any", "trace_closest_perray"
               "trace_any_perray")
 
 # Kernel launches by kernel name; only the wrappers' CUDA launch sites add
-# to them (ops/trace.py, ops/volume.py, ops/traversal.py, tools/sweep_sol.py).
+# to them (ops/trace.py, ops/volume.py, ops/traversal.py, tools/sweep_sol.py,
+# each through launch()).
 launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
                           "trace_closest_perray", "trace_any_perray",
                           "trace_closest_attrs", "sweep_sol", "volume_march",
@@ -187,6 +188,16 @@ def library() -> ctypes.CDLL:
 def stream_handle(device) -> int:
     """PyTorch's current CUDA stream on `device`, as a raw handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, device, *args) -> int:
+    """Call the library's entry point `entry` with args and the current
+    stream of `device`, with `device` the current device: the library's
+    own CUDA runtime launches on the calling thread's current device,
+    whatever device the stream belongs to. Returns the entry's CUDA error
+    code (0: launched)."""
+    with torch.cuda.device(device):
+        return getattr(library(), entry)(*args, stream_handle(device))
 
 
 def check_operand(x: torch.Tensor, dtype, device) -> None:

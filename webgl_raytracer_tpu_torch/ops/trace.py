@@ -394,9 +394,9 @@ def _cluster_types(ct: int, scene_types_: tuple) -> tuple:
 def _launch(name: str, ops: TraceOperands, od, cp, clip_on, outs, group=False,
             tables=()):
     """Check the operands and launch kernel `name` of the library on od's
-    stream: (od, n, soa, box, [gbox, G,] ctype, K, cp, clip_on, *tables,
+    card and stream: (od, n, soa, box, [gbox, G,] ctype, K, cp, clip_on, *tables,
     *outs); tables: (tensor, dtype) inputs. Raises on a refused launch."""
-    from .kernels import check_operand, library, stream_handle
+    from .kernels import check_operand, launch
 
     if ops.soa.shape[-1] != 128:
         raise ValueError("the CUDA trace kernels take clusters of 128 primitives")
@@ -405,11 +405,11 @@ def _launch(name: str, ops: TraceOperands, od, cp, clip_on, outs, group=False,
                   (ops.ctype, torch.int32), (cp, torch.float32), *tables):
         check_operand(x, dt, od.device)
     groups = (ops.gbox.data_ptr(), ops.gbox.shape[0]) if group else ()
-    err = getattr(library(), name)(
-        od.data_ptr(), od.shape[1], ops.soa.data_ptr(), ops.box.data_ptr(), *groups,
-        ops.ctype.data_ptr(), ops.soa.shape[0], cp.data_ptr(), int(clip_on),
-        *(x.data_ptr() for x, _ in tables), *(o.data_ptr() for o in outs),
-        stream_handle(od.device))
+    err = launch(
+        name, od.device, od.data_ptr(), od.shape[1], ops.soa.data_ptr(),
+        ops.box.data_ptr(), *groups, ops.ctype.data_ptr(), ops.soa.shape[0],
+        cp.data_ptr(), int(clip_on), *(x.data_ptr() for x, _ in tables),
+        *(o.data_ptr() for o in outs))
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
 

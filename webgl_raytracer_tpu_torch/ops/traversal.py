@@ -260,7 +260,7 @@ def type_mask(types) -> int:
 
 def _walk_cuda(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, any_hit,
                max_steps, max_leaf):
-    from .kernels import check_operand, library, stream_handle
+    from .kernels import check_operand, launch
 
     od = walk_operand(o3, d3, t_min, t_max, accept_min, active)
     device = od.device
@@ -286,10 +286,10 @@ def _walk_cuda(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, an
         outs = (t, slot, extra, cost)
         found = None
     if n:
-        err = getattr(library(), "wrt_" + name)(
-            od.data_ptr(), n, *(x.data_ptr() for x, _ in tabs), type_mask(types),
-            cp.data_ptr(), int(clip_on), int(max_steps), int(max_leaf),
-            *(x.data_ptr() for x in outs), stream_handle(device))
+        err = launch(
+            "wrt_" + name, device, od.data_ptr(), n, *(x.data_ptr() for x, _ in tabs),
+            type_mask(types), cp.data_ptr(), int(clip_on), int(max_steps),
+            int(max_leaf), *(x.data_ptr() for x in outs))
         if err != 0:
             raise RuntimeError(f"wrt_{name} failed: CUDA error {err}")
         launches[name] += 1

@@ -198,7 +198,7 @@ def march_operands(vol: VolumeBuffers, origin, direction, t_surface, t_min, colo
 
 def _march_cuda(vol, origin, direction, t_surface, t_min, color, density_scale, opacity,
                 step_size, threshold, throughput, active, max_steps, n):
-    from .kernels import check_operand, library, stream_handle
+    from .kernels import check_operand, launch
 
     if not 0 <= max_steps <= MAX_STEPS:
         raise ValueError(f"max_steps must lie in [0, {MAX_STEPS}], not {max_steps}")
@@ -213,9 +213,9 @@ def _march_cuda(vol, origin, direction, t_surface, t_min, color, density_scale, 
                          f"(nz, ny, nx) = {(vol.nz, vol.ny, vol.nx)}")
     out = torch.empty((6, n), dtype=torch.float32, device=device)
     if n:
-        err = library().wrt_volume_march(
-            od.data_ptr(), n, params.data_ptr(), vol.data.data_ptr(), vol.nx, vol.ny,
-            vol.nz, int(max_steps), out.data_ptr(), stream_handle(device))
+        err = launch("wrt_volume_march", device, od.data_ptr(), n, params.data_ptr(),
+                     vol.data.data_ptr(), vol.nx, vol.ny, vol.nz, int(max_steps),
+                     out.data_ptr())
         if err != 0:
             raise RuntimeError(f"wrt_volume_march failed: CUDA error {err}")
         launches["volume_march"] += 1

@@ -179,6 +179,13 @@ class Uniforms:
     cam_up: torch.Tensor
     resolution: torch.Tensor        # f32[2] (width, height)
 
+    @property
+    def device(self) -> torch.device:
+        return self.resolution.device
+
+    def to(self, device) -> "Uniforms":
+        return Uniforms(**{f.name: getattr(self, f.name).to(device) for f in fields(self)})
+
 
 # Shape of each Uniforms field, in the order of the flat buffer.
 UNIFORM_SHAPES = {f.name: () for f in fields(Uniforms)}

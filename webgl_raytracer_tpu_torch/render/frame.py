@@ -33,6 +33,21 @@ a time with no capture, as the JAX package does: the view
 (integrator.render_visualization) replaces the accumulator, frame_index
 becomes 1, and image() shows it through the linear tone map. A vis frame
 releases the held capture, so the next path-traced frame captures anew.
+
+With a mesh (parallel/mesh.py, Renderer(mesh=...)) the frame is split by
+rays: one shard a mesh device, each a single-device Renderer on its
+contiguous part of the Morton-ordered rays (parallel/mesh.shard_sizes:
+whole blocks of the binned transport where the frame has one a shard,
+so that the shards take the single-device frame's transport), with its
+own copies of the scene, environment and volume, its own accumulator,
+uniforms, frame counter and totals, and its own captured frame, and with
+this Renderer's settings, camera and stats. render_frames captures where
+needed on every shard first, then issues every shard's replays, then
+reads each shard's totals; a shard whose binned buffer overflowed redoes
+its block alone. Readout gathers the shards' accumulators in ray order
+onto the first device. The counterpart of the JAX package's shard_map
+tile path, which needs the ray count to divide by the mesh size; here
+shards may differ in size, so one path serves every size.
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ import torch
 from ..device import resolve_device
 from ..ops.kernels import launches
 from ..ops.tonemap import apply_tonemap
+from ..parallel.mesh import replicate_scene, shard_rays
 from ..scene.camera import OrbitCamera
 from ..scene.compile import SceneBuffers, scene_bounds, scene_scale
 from .config import (UNIFORM_SIZE, RenderSettings, split_settings, static_flags,
@@ -107,7 +123,8 @@ class Renderer:
     or None; settings.volume_enabled turns its march on.
     impl: None (kernels on CUDA tensors, plain versions on CPU ones) or
     "plain" to force the plain traces on a CUDA device (comparison runs,
-    eager).
+    eager). mesh: a parallel.Mesh to split every frame's rays over its
+    devices (the module docstring); device is then the mesh's first.
 
     stats counts captures, blocks whose binned buffer overflowed and the
     frames redone for them; ray_counts holds the (path, occlusion) rays of
@@ -116,9 +133,11 @@ class Renderer:
 
     def __init__(self, scene: SceneBuffers, settings: RenderSettings | None = None,
                  env=None, volume=None, width: int = 800, height: int = 600,
-                 device=None, impl: str | None = None, auto_fit: bool = True):
+                 device=None, impl: str | None = None, auto_fit: bool = True,
+                 mesh=None):
         self.settings = settings or RenderSettings()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.impl = impl
         self.width = int(width)
         self.height = int(height)
@@ -126,18 +145,23 @@ class Renderer:
         self.base_height = self.height
         self.scale = 1.0
         self.camera = OrbitCamera(width=self.width, height=self.height)
+        self.stats = {"captures": 0, "overflowed_blocks": 0, "redone_frames": 0}
+        self._init_frame_state()
+        self.env = None
+        self.set_env(env)
+        self.set_scene(scene, volume=volume, auto_fit=auto_fit)
+
+    def _init_frame_state(self) -> None:
         self.frame_index = 0
         self.ray_counts = (0, 0)
-        self.stats = {"captures": 0, "overflowed_blocks": 0, "redone_frames": 0}
         self._graph = None
+        self._capture_stream = None
         self._accum = None
         self._px = self._py = self._unperm = None
         self._u = self._uflat = self._uhost = None
         self._fi = None          # int64 0-d: the next frame's index, on the device
         self._totals = None      # int64[3]: the block's overflows, path and occlusion rays
-        self.env = None
-        self.set_env(env)
-        self.set_scene(scene, volume=volume, auto_fit=auto_fit)
+        self._shards = None      # a mesh's shards, made on first use (_mesh_shards)
 
     # -- state management ---------------------------------------------------
 
@@ -148,6 +172,11 @@ class Renderer:
     def set_env(self, env) -> None:
         """Swap the environment (EnvBuffers or None) and restart
         accumulation."""
+        if self.mesh is not None:
+            self._envs = replicate_scene(env, self.mesh)
+            env = self._envs[0]
+            for shard, copy in zip(self._shards or (), self._envs):
+                shard.env = copy
         if env is not None and env.device != self.device:
             env = env.to(self.device)
         self.env = env
@@ -158,6 +187,12 @@ class Renderer:
         """Swap the compiled scene and its volume (VolumeBuffers or None):
         bounds, scene scale, ray bias and the camera fit are recomputed;
         accumulation restarts."""
+        if self.mesh is not None:
+            self._scenes = replicate_scene(scene, self.mesh)
+            self._volumes = replicate_scene(volume, self.mesh)
+            scene, volume = self._scenes[0], self._volumes[0]
+            for shard, copy, vol in zip(self._shards or (), self._scenes, self._volumes):
+                shard.scene, shard.volume = copy, vol
         self.scene = scene if scene.device == self.device else scene.to(self.device)
         if volume is not None and volume.device != self.device:
             volume = volume.to(self.device)
@@ -179,6 +214,7 @@ class Renderer:
             self._release_graph()        # it reads the old size's buffers
             self._accum = None
             self._px = self._py = self._unperm = None
+            self._shards = None
             self.reset_accumulation()
         self.camera.width, self.camera.height = self.width, self.height
 
@@ -275,11 +311,16 @@ class Renderer:
         if self._uhost is None or not np.array_equal(values, self._uhost):
             self._uflat.copy_(torch.from_numpy(values))
             self._uhost = values
-        px, _ = self._pixel_grids()
+        self._accumulator()
+        return flags
+
+    def _accumulator(self) -> torch.Tensor:
+        """The accumulator, allocated (zeros) on first use."""
         if self._accum is None:
+            px, _ = self._pixel_grids()
             self._accum = torch.zeros((px.shape[0], 3), dtype=torch.float32,
                                       device=self.device)
-        return flags
+        return self._accum
 
     def _frame(self, flags) -> None:
         """One progressive frame into the accumulator at the device frame
@@ -296,32 +337,39 @@ class Renderer:
         if self._graph is not None:
             self._graph.graph.reset()
             self._graph = None
+        for shard in self._shards or ():
+            shard._release_graph()
 
     def _captured(self, flags) -> _Captured:
         """The captured frame for these flags and the current scene, env,
         volume, size, impl and transport knobs: the one held, or a new capture.
         A new capture first runs the frame once on a side stream (it builds
         the kernels and the scene's operands, which capture cannot), then
-        restores the accumulator and records one frame; the launch
-        counters keep the warm-up's launches and learn the replay's."""
+        restores the accumulator and records one frame on this Renderer's
+        own capture stream; the launch counters keep the warm-up's launches
+        and learn the replay's. All of it runs with the Renderer's device
+        current, whatever device the caller's is."""
         key = (flags, self.width, self.height, id(self.scene), id(self.env),
                id(self.volume), self.impl, tuple(os.environ.get(k) for k in TRANSPORT_KNOBS))
         if self._graph is not None and self._graph.key == key:
             return self._graph
         self._release_graph()
-        saved = self._accum.clone()
-        self._fi.fill_(self.frame_index)
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._frame(flags)
-        main.wait_stream(side)
-        self._accum.copy_(saved)
-        graph = torch.cuda.CUDAGraph()
-        before = dict(launches)
-        with torch.cuda.graph(graph):
-            self._frame(flags)
+        with torch.cuda.device(self.device):
+            saved = self._accum.clone()
+            self._fi.fill_(self.frame_index)
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._frame(flags)
+            main.wait_stream(side)
+            self._accum.copy_(saved)
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            graph = torch.cuda.CUDAGraph()
+            before = dict(launches)
+            with torch.cuda.graph(graph, stream=self._capture_stream):
+                self._frame(flags)
         per_replay = {name: launches[name] - n for name, n in before.items()}
         launches.update(before)
         self.stats["captures"] += 1
@@ -337,13 +385,29 @@ class Renderer:
             count = min(count, max(0, s.max_frames - self.frame_index))
         if count <= 0:
             return False
+        if self.mesh is not None:
+            self._render_mesh(count)
+            return True
         flags = self._frame_setup()
         if flags.vis_mode > 0:
             for _ in range(count):
                 self._vis_frame(flags)
             return True
-        captured = (self._captured(flags)
-                    if self.device.type == "cuda" and self.impl is None else None)
+        self._finish_block(flags, self._start_block(flags, count, self._block_graph(flags)))
+        return True
+
+    def _block_graph(self, flags):
+        """The captured frame a block replays (_captured), or None where
+        frames run eagerly: on the CPU and with impl="plain"."""
+        if self.device.type == "cuda" and self.impl is None:
+            return self._captured(flags)
+        return None
+
+    def _start_block(self, flags, count, captured):
+        """Issue `count` frames from frame_index: replays of `captured`, or
+        eager frames where it is None. No host read on the card. Returns
+        the block (start, count, accumulator at the start) for
+        _finish_block."""
         start = self.frame_index
         saved = self._accum.clone() if start > 0 else None
         self._fi.fill_(start)
@@ -352,16 +416,56 @@ class Renderer:
             for _ in range(count):
                 self._frame(flags)
         else:
-            for _ in range(count):
-                captured.graph.replay()
+            with torch.cuda.device(self.device):
+                for _ in range(count):
+                    captured.graph.replay()
             for name, n in captured.launches.items():
                 launches[name] += n * count
+        return start, count, saved
+
+    def _finish_block(self, flags, block) -> tuple:
+        """Read the block's totals (one host read), redo the block where
+        its binned buffer overflowed, and advance frame_index and
+        ray_counts. Returns the block's (path, occlusion) rays."""
+        start, count, saved = block
         overflowed, paths, occl = self._totals.tolist()
         if overflowed:
             paths, occl = self._redo(flags, start, count, saved)
         self.frame_index = start + count
         self.ray_counts = (self.ray_counts[0] + paths, self.ray_counts[1] + occl)
-        return True
+        return paths, occl
+
+    def _mesh_shards(self) -> list:
+        """The mesh's shards (module docstring), made on first use after
+        a resize: each a _Shard on its device's part of the rays."""
+        if self._shards is None:
+            px, py = self._pixel_grids()
+            self._shards = [
+                _Shard(self, *parts) for parts in zip(
+                    self.mesh.devices, shard_rays(px, self.mesh), shard_rays(py, self.mesh),
+                    self._scenes, self._envs, self._volumes)]
+        return self._shards
+
+    def _render_mesh(self, count: int) -> None:
+        """`count` frames on every shard: the captures first, then every
+        shard's replays (the cards run together), then each shard's
+        totals; vis frames shard by shard, eagerly."""
+        shards = self._mesh_shards()
+        for shard in shards:
+            shard.frame_index = self.frame_index
+        flags = [shard._frame_setup() for shard in shards]
+        if flags[0].vis_mode > 0:
+            for shard, f in zip(shards, flags):
+                for _ in range(count):
+                    shard._vis_frame(f)
+            self.frame_index = 1
+            return
+        graphs = [shard._block_graph(f) for shard, f in zip(shards, flags)]
+        blocks = [shard._start_block(f, count, g) for shard, f, g in zip(shards, flags, graphs)]
+        rays = [shard._finish_block(f, b) for shard, f, b in zip(shards, flags, blocks)]
+        self.frame_index += count
+        self.ray_counts = (self.ray_counts[0] + sum(p for p, _ in rays),
+                           self.ray_counts[1] + sum(o for _, o in rays))
 
     def _vis_frame(self, flags) -> None:
         """One visualisation frame: the view written over the accumulator
@@ -406,11 +510,22 @@ class Renderer:
 
     # -- output -------------------------------------------------------------
 
+    def _ray_accum(self):
+        """The accumulator in ray order on the Renderer's device, None
+        before any frame: on a mesh, the shards' accumulators copied onto
+        the first device in shard order (the readout's one gather)."""
+        if self.mesh is None:
+            return self._accum
+        if self._shards is None or self._shards[0]._accum is None:
+            return None
+        return torch.cat([shard._accum.to(self.device) for shard in self._shards])
+
     def accumulated(self) -> np.ndarray:
         """Linear accumulated radiance f32[H,W,3] (top row first)."""
-        if self._accum is None:
+        accum = self._ray_accum()
+        if accum is None:
             return np.zeros((self.height, self.width, 3), np.float32)
-        flat = self._accum[self._unperm]      # ray order -> image order
+        flat = accum[self._unperm]      # ray order -> image order
         return flat.cpu().numpy().reshape(self.height, self.width, 3)
 
     def image(self) -> np.ndarray:
@@ -429,7 +544,8 @@ class Renderer:
         """Write the accumulator (ray order), its frame count and the
         camera to an .npz with the JAX package's keys, so that either
         package loads the other's checkpoint."""
-        accum = (self._accum.cpu().numpy() if self._accum is not None
+        accum = self._ray_accum()
+        accum = (accum.cpu().numpy() if accum is not None
                  else np.zeros((self.width * self.height, 3), np.float32))
         np.savez_compressed(
             path, accum=accum, frame_index=self.frame_index, width=self.width,
@@ -447,13 +563,31 @@ class Renderer:
                 raise ValueError(f"Checkpoint resolution {w}x{h} != renderer "
                                  f"{self.width}x{self.height}")
             accum = torch.from_numpy(np.asarray(data["accum"], np.float32))
-            px, _ = self._pixel_grids()
-            if self._accum is None:
-                self._accum = torch.zeros((px.shape[0], 3), dtype=torch.float32,
-                                          device=self.device)
-            self._accum.copy_(accum)
+            if self.mesh is None:
+                self._accumulator().copy_(accum)
+            else:
+                start = 0
+                for shard in self._mesh_shards():
+                    part = shard._accumulator()
+                    part.copy_(accum[start:start + part.shape[0]])
+                    start += part.shape[0]
             self.frame_index = int(data["frame_index"])
             self.camera.target = data["cam_target"]
             self.camera.distance = float(data["cam_distance"])
             self.camera.rotation = data["cam_rotation"]
             self.camera.fov = float(data["cam_fov"])
+
+
+class _Shard(Renderer):
+    """One device's part of a mesh Renderer: the single-device frame loop
+    on rays px, py (a contiguous part of the parent's ray order), with
+    the parent's settings, camera and stats, and its own copies of the
+    scene, environment and volume."""
+
+    def __init__(self, parent: Renderer, device, px, py, scene, env, volume):
+        self.settings, self.camera, self.stats = parent.settings, parent.camera, parent.stats
+        self.mesh, self.device, self.impl = None, device, parent.impl
+        self.width, self.height = parent.width, parent.height
+        self.scene, self.env, self.volume = scene, env, volume
+        self._init_frame_state()
+        self._px, self._py = px, py

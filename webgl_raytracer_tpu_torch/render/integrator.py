@@ -794,15 +794,19 @@ def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
     return V.from_array(colors), (nrays, noccl)
 
 
+# The binned transport takes batches of whole blocks of this many rays.
+BINNED_BLOCK = 1024
+
+
 def _use_binned(scene, flags, n) -> bool:
     """The binned transport: the default wherever the kernels run
     (WRT_BINNED=1 forces it, =0 turns it off), for batches of whole
-    1024-ray blocks and at least one bounce; never for volume frames,
+    BINNED_BLOCK-ray blocks and at least one bounce; never for volume frames,
     which march from every lane's camera ray, and only on the culled
     cluster tracer (the JAX package's rules)."""
     knob = os.environ.get("WRT_BINNED")
     if (knob == "0" or flags.volume_enabled or not _cluster_tracer(flags)
-            or n % 1024 != 0 or flags.max_bounces < 1):
+            or n % BINNED_BLOCK != 0 or flags.max_bounces < 1):
         return False
     return knob == "1" or kernel_supported(scene)
 

@@ -90,7 +90,7 @@ def sweep_sol(a, s, iters: int, dtype=torch.float32, impl=None):
         raise ValueError(f"the probe runs in float32 or bfloat16, not {dtype}")
     if impl == "plain" or a.device.type == "cpu":
         return sweep_plain(a, s, iters, dtype)
-    from ..ops.kernels import check_operand, library, stream_handle
+    from ..ops.kernels import check_operand, launch
 
     if a.shape[1] != 16 or tuple(s.shape) != (24, C):
         raise ValueError(f"the probe takes a [rows,16] and s [24,{C}], not "
@@ -98,9 +98,8 @@ def sweep_sol(a, s, iters: int, dtype=torch.float32, impl=None):
     for x in (a, s):
         check_operand(x, torch.float32, a.device)
     out = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
-    err = library().wrt_sweep_sol(a.data_ptr(), s.data_ptr(), a.shape[0], iters,
-                                  int(dtype == torch.bfloat16), out.data_ptr(),
-                                  stream_handle(a.device))
+    err = launch("wrt_sweep_sol", a.device, a.data_ptr(), s.data_ptr(), a.shape[0], iters,
+                 int(dtype == torch.bfloat16), out.data_ptr())
     if err != 0:
         raise RuntimeError(f"sweep_sol failed: CUDA error {err}")
     launches["sweep_sol"] += 1
