@@ -137,3 +137,8 @@ def encode_hdr(rgb: np.ndarray) -> bytes:
             parts.append(bytes(enc))
     return b"".join(parts)
 
+
+def save_hdr(path: str, rgb: np.ndarray) -> None:
+    """Write f32[H,W,3] as a Radiance RLE .hdr file (encode_hdr)."""
+    with open(path, "wb") as f:
+        f.write(encode_hdr(rgb))

@@ -51,19 +51,32 @@ BOND_RADIUS: float = 0.15
 BOND_COLOR: tuple[float, float, float] = (0.9, 0.9, 0.9)
 
 
+def element_color(element: str) -> tuple[float, float, float]:
+    """CPK colour of an element symbol (DEFAULT_COLOR if unknown)."""
+    return ELEMENT_COLORS.get(element, DEFAULT_COLOR)
+
+
+def element_radius(element: str) -> float:
+    """Van der Waals radius of an element symbol (DEFAULT_RADIUS if unknown)."""
+    return ELEMENT_RADII.get(element, DEFAULT_RADIUS)
+
+
+def covalent_radius(element: str) -> float:
+    """Covalent radius of an element symbol (DEFAULT_COVALENT_RADIUS if
+    unknown)."""
+    return COVALENT_RADII.get(element, DEFAULT_COVALENT_RADIUS)
+
+
 def element_colors_array(elements: list[str]) -> np.ndarray:
     """Colour lookup -> f32[N,3]."""
-    return np.array([ELEMENT_COLORS.get(e, DEFAULT_COLOR) for e in elements],
-                    dtype=np.float32).reshape(-1, 3)
+    return np.array([element_color(e) for e in elements], dtype=np.float32).reshape(-1, 3)
 
 
 def element_radii_array(elements: list[str]) -> np.ndarray:
     """Van der Waals radius lookup -> f32[N]."""
-    return np.array([ELEMENT_RADII.get(e, DEFAULT_RADIUS) for e in elements],
-                    dtype=np.float32)
+    return np.array([element_radius(e) for e in elements], dtype=np.float32)
 
 
 def covalent_radii_array(elements: list[str]) -> np.ndarray:
     """Covalent radius lookup -> f32[N]."""
-    return np.array([COVALENT_RADII.get(e, DEFAULT_COVALENT_RADIUS) for e in elements],
-                    dtype=np.float32)
+    return np.array([covalent_radius(e) for e in elements], dtype=np.float32)

@@ -26,3 +26,9 @@ def apply_tonemap(color, mode):
     if mode == 2:
         return tonemap_reinhard(color)
     return color
+
+
+def to_srgb_u8(color):
+    """Linear [0,1] -> uint8: a plain quantisation, round half to even, no
+    gamma (the reference writes linear values to an sRGB-unaware canvas)."""
+    return torch.clamp(torch.round(color * 255.0), 0, 255).to(torch.uint8)

@@ -2,17 +2,20 @@
 
     python -m webgl_raytracer_tpu_torch.profile_frame
 
-For each of four frames — the 1000-sphere main path (default settings,
+For each of five frames — the 1000-sphere main path (default settings,
 ambient light), the same scene under the default analytic sky (1024x512,
 env_intensity 0.4; the frame whose env NEE takes trace_any), the
-10k-sphere scene under that sky (the per-ray kernels) and the TSTP protein
+10k-sphere scene under that sky (the per-ray kernels), the TSTP protein
 cartoon (assets/proteins/TSTP.pdb through app/pipeline, ambient light;
-triangles, spheres and cylinders, so the block kernels) — each of two
-transports — the binned one that 1080p frames take by default, and the
-whole batch (WRT_CHUNKS=1) — and each of two modes — eager (the frame
-function run op by op: integrator.render_batch_stats and the running
-mean) and graph (Renderer.render_frame: one replay of the captured frame
-and the block's host read) — it renders at 1920x1080 one warm frame (for
+triangles, spheres and cylinders, so the block kernels) and the bench's
+150k-sphere scene (ambient light, K = 1976, under the bench's
+WRT_BIN_CAP_DIV for it: its primary hits overflow the default buffer) —
+each of two transports — the binned one that 1080p frames take by
+default, and the whole batch (WRT_CHUNKS=1) — and each of two modes —
+eager (the frame function run op by op: integrator.render_batch_stats
+and the running mean) and graph (Renderer.render_frame: one replay of
+the captured frame and the block's host read) — it renders at 1920x1080
+one warm frame (for
 the graph, the capture), TIMED_FRAMES frames timed one by one, then one
 frame under torch.profiler, and prints one JSON line: the timed frames'
 wall milliseconds (mean and each), the profiled frame's, its device busy
@@ -137,8 +140,9 @@ def _profile(name, r, transport, mode) -> dict:
     busy_ms = sum(ms for _, ms, _ in rows)
 
     def is_(t, key):
-        # Mangled ("...16trace_any_kernelEPKf...") or demangled ("trace_any_kernel(").
-        return t + "E" in key or t + "(" in key
+        # Mangled ("...16trace_any_kernelEPKf...", "...16trace_any_kernelILb0E...") or
+        # demangled ("trace_any_kernel(", "trace_any_kernel<false>(").
+        return any(t + c in key for c in ("E", "I", "(", "<"))
 
     traces = {t: [sum(ms for k, ms, _ in rows if is_(t, k)),
                   sum(c for k, _, c in rows if is_(t, k))] for t in TRACE_KERNELS}
@@ -195,6 +199,7 @@ def main() -> int:
     import torch
 
     from .app.pipeline import load_molecule_scene
+    from .bench import _LEG_ENV
     from .device import card_line
     from .env import EnvironmentController
     from .models import parse_auto_detect
@@ -216,17 +221,25 @@ def main() -> int:
         r.settings.env_intensity = 0.4
         return r
 
-    frames = (("spheres1000", Renderer(spheres1000, width=WIDTH, height=HEIGHT, device=device)),
-              ("spheres1000 analytic sky", lit(spheres1000)),
+    # (name, renderer, the frame's own knobs)
+    frames = (("spheres1000", Renderer(spheres1000, width=WIDTH, height=HEIGHT, device=device),
+               {}),
+              ("spheres1000 analytic sky", lit(spheres1000), {}),
               ("spheres10k analytic sky",
-               lit(compile_scene(random_sphere_geometry(10000), device=device))),
-              ("tstp cartoon", Renderer(tstp, width=WIDTH, height=HEIGHT, device=device)))
-    for name, r in frames:
+               lit(compile_scene(random_sphere_geometry(10000), device=device)), {}),
+              ("tstp cartoon", Renderer(tstp, width=WIDTH, height=HEIGHT, device=device), {}),
+              ("spheres150k", Renderer(compile_scene(random_sphere_geometry(150000),
+                                                     device=device),
+                                       width=WIDTH, height=HEIGHT, device=device),
+               _LEG_ENV["150000"]))
+    for name, r, frame_knobs in frames:
         r.settings.max_frames = 0
         for transport, knobs in TRANSPORTS:
             for mode in MODES:
-                with knobs_set(knobs):
-                    print(json.dumps(_profile(name, r, transport, mode)), flush=True)
+                run_knobs = {**frame_knobs, **knobs}
+                with knobs_set(run_knobs):
+                    print(json.dumps({**_profile(name, r, transport, mode),
+                                      "knobs": run_knobs}), flush=True)
     for line in chunk_race(spheres1000, device):
         print(json.dumps(line), flush=True)
     return 0
