@@ -975,6 +975,145 @@ def test_trace_stack_kernels_match_plain(device, name, clip, monkeypatch):
         assert T.launches[kernel] == before[kernel] + 1
 
 
+# The march's and the stack walk's edge batches: empty, one
+# ray, a warp less one and a warp plus one, no live lane, and one live
+# lane among 3 x 1920 x 1080 (a 1080p [3N] shadow batch).
+EDGE_BATCHES = ["0", "1", "31", "33", "no live lane", "one live lane in 6.2M"]
+ONE_LIVE_RAYS = 3 * 1920 * 1080
+
+
+def _edge_active(case, n, device):
+    """The activity mask of an edge batch (case of EDGE_BATCHES) of n
+    rays: given (None) for the sizes, none live, or one live at n // 2 + 7."""
+    if case == "no live lane":
+        return torch.zeros(n, dtype=torch.bool, device=device)
+    if case.startswith("one live"):
+        act = torch.zeros(n, dtype=torch.bool, device=device)
+        act[n // 2 + 7] = True
+        return act
+    return None
+
+
+@pytest.mark.parametrize("case", EDGE_BATCHES)
+def test_volume_march_kernel_edge_batches(device, case):
+    """volume_march on the edge batches, bit for bit its plain version; the
+    one live lane's batch passes every ray operand as one value (stride-0
+    rows) and marches that lane only."""
+    from webgl_raytracer_tpu_torch.ops import volume as PV
+
+    vol = _volume(device)
+    if case.startswith("one live"):
+        n = ONE_LIVE_RAYS
+
+        def one(v):
+            return torch.tensor(v, device=device).expand(n)
+
+        o, d, ts = (one(0.0), one(0.0), one(0.5)), (one(1.0), one(0.0), one(0.0)), one(1e20)
+        tp = (one(1.0), one(0.8), one(0.6))
+        act = _edge_active(case, n, device)
+    else:
+        n = 4096 if case == "no live lane" else int(case)
+        o, d, ts, tp, act = _march_rays(n, device)
+        act = act if _edge_active(case, n, device) is None else _edge_active(case, n, device)
+    args = (vol, o, d, ts, torch.tensor(1e-4, device=device),
+            torch.tensor([0.435, 0.643, 1.0], device=device), torch.tensor(2.0, device=device),
+            torch.tensor(1.0, device=device), torch.tensor(0.5, device=device),
+            torch.tensor(0.0, device=device), tp, act, 256)
+    before = T.launches["volume_march"]
+    kr, kt = PV.march_volume(*args)
+    assert T.launches["volume_march"] == before + (n > 0)
+    pr, pt = PV.march_volume(*args, impl="plain")
+    torch.cuda.synchronize()
+    for a, b in zip(kr + kt, pr + pt):
+        assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    ran = (torch.stack(kr, 1) > 0).any(1) | (torch.stack(kt, 1) != torch.stack(tp, 1)).any(1)
+    if case == "no live lane":
+        assert not bool(ran.any())
+    elif case.startswith("one live"):
+        assert ran.nonzero().squeeze(1).tolist() == [n // 2 + 7]
+
+
+@pytest.mark.parametrize("case", EDGE_BATCHES)
+def test_trace_stack_kernel_edge_batches(device, case):
+    """trace_stack_closest and trace_stack_any on the edge batches, bit for
+    bit the plain walk (one live lane: a 6.2M-ray batch whose origin is one
+    value for every ray)."""
+    from webgl_raytracer_tpu_torch.ops import traversal as PT
+
+    scene = _compile("caffeine+tris", device)
+    if case.startswith("one live"):
+        n = ONE_LIVE_RAYS
+        o3, d3s, _, _ = _fan(1, 3, device, spread=0.4)
+        o3 = tuple(x.reshape(()).expand(n) for x in o3)
+        d3 = tuple(x.expand(n) for x in d3s[0])
+        tmin = torch.tensor(1e-3, device=device)
+    else:
+        n = 1013 if case == "no live lane" else int(case)
+        o3, d3s, _, tmin = _fan(n, 3, device, spread=0.4)
+        d3 = d3s[0]
+    act = _edge_active(case, n, device)
+    for any_hit in (False, True):
+        def run(impl):
+            if any_hit:
+                return PT.trace_any(scene, o3, d3, tmin, t_max=30.0, accept_min=0.5,
+                                    active=act, impl=impl, with_cost=True)
+            rec = PT.trace_closest(scene, o3, d3, tmin, active=act, impl=impl)
+            return rec.t.view(torch.int32), rec.prim_slot, rec.extra.view(torch.int32), rec.cost
+
+        got, want = run(None), run("plain")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        cost = got[-1]
+        if act is not None:
+            assert int((cost > 0).sum()) == int(act.sum())
+
+
+def test_stack_and_march_kernels_in_one_captured_graph(device):
+    """volume_march and both stack entry points, each launched twice inside
+    one captured CUDA graph (each masked walk allocates and zeroes its own
+    live list's count on the capture's stream), replayed twice: every
+    output equal to the eager calls' bit for bit."""
+    from webgl_raytracer_tpu_torch.ops import traversal as PT
+    from webgl_raytracer_tpu_torch.ops import volume as PV
+
+    scene = _compile("caffeine+tris", device)
+    o3, d3s, acts, tmin = _fan(1013, 3, device, spread=0.4)
+    vol = _volume(device)
+    mo, md, mts, mtp, mact = _march_rays(4096, device)
+    scalars = [torch.tensor(v, device=device) for v in (1e-4, 2.0, 1.0, 0.5, 0.0)]
+    color = torch.tensor([0.435, 0.643, 1.0], device=device)
+
+    def calls():
+        outs = []
+        for k in range(2):
+            kr, kt = PV.march_volume(vol, mo, md, mts, scalars[0], color, *scalars[1:], mtp,
+                                     mact, 256)
+            rec = PT.trace_closest(scene, o3, d3s[k], tmin, active=acts[k])
+            found, cost = PT.trace_any(scene, o3, d3s[k], tmin, t_max=30.0, accept_min=0.5,
+                                       active=acts[k], with_cost=True)
+            outs += [*kr, *kt, rec.t, rec.prim_slot, rec.extra, rec.cost, found, cost]
+        return outs
+
+    eager = [x.clone() for x in calls()]
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        calls()                              # warm-up on the side stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = calls()
+    for _ in range(2):
+        for x in captured:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(captured, eager):
+            a, b = (x.view(torch.int32) if x.is_floating_point() else x for x in (a, b))
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("settings", [{"tracer": "stack"}, {"use_bvh": False}],
                          ids=["stack", "brute"])
 def test_tracer_graph_frames_equal_eager_frames(device, settings):

@@ -179,6 +179,162 @@ def test_kernel_stack_depth_is_the_walks():
     assert not re.search(r"kStack\s*=\s*\d", src)
 
 
+# The stack kernel's operands (ops/traversal.walk_args, pack_nodes): what
+# the CPU can check of the CUDA path.
+
+def _bench_scene(name):
+    """A port scene of the smoke's stack cases, built on the CPU: the
+    1000-sphere bench scene or the TSTP cartoon."""
+    import os
+
+    from webgl_raytracer_tpu_torch.app.pipeline import load_molecule_scene
+    from webgl_raytracer_tpu_torch.models import parse_auto_detect
+    from webgl_raytracer_tpu_torch.scene import compile_scene, random_sphere_geometry
+
+    if name == "spheres1000":
+        return compile_scene(random_sphere_geometry(1000), device="cpu")
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "assets", "proteins", "TSTP.pdb")
+    with open(path, encoding="utf-8") as f:
+        mol = parse_auto_detect(f.read(), "TSTP.pdb")
+    return load_molecule_scene(mol, display_style="cartoon", device="cpu").scene
+
+
+@pytest.mark.parametrize("name", ["spheres1000", "tstp cartoon"])
+def test_packed_nodes_unpack_to_the_walk_tables(name):
+    """The kernel's packed node table, decoded as csrc/trace_stack.cu reads
+    it, gives back walk_tables' node rows exactly: bmin, bmax and
+    (leftFirst, primCount, rightChild)."""
+    tables = _bench_scene(name).walk_tables
+    words = tables.nodes.view(torch.int32)
+    assert tables.nodes.shape == (tables.node_bmin.shape[0], 8)
+    assert tables.nodes.is_contiguous() and tables.nodes.dtype == torch.float32
+    link = words[:, 7]
+    leaf = link > 0
+    meta = torch.stack([words[:, 3], torch.where(leaf, link, 0),
+                        torch.where(leaf, -1, ~link)], dim=1)
+    assert torch.equal(words[:, 0:3], tables.node_bmin.view(torch.int32))
+    assert torch.equal(words[:, 4:7], tables.node_bmax.view(torch.int32))
+    assert torch.equal(meta, tables.node_meta)
+    assert bool(leaf.any()) and bool((~leaf).any())
+
+
+@pytest.mark.parametrize("links", [[0, 2, 5], [1, 0, 2], [1, -1, 2], [1, 0, -2]],
+                         ids=["leaf with a right child", "inner count 0 is fine",
+                              "inner with a negative count", "inner right below -1"])
+def test_check_links_refuses_links_pack_nodes_cannot_hold(links):
+    meta = np.array([[1, 0, 2], links], np.int32)
+    if links == [1, 0, 2]:
+        PT.check_links(meta)
+        return
+    with pytest.raises(ValueError, match="BVH node 1"):
+        PT.check_links(meta)
+
+
+def _walk_batch(n=256):
+    js, ps = _scene("caffeine")
+    o, d, active = _rays(js, n, seed=5)
+    return ps, _t3(o), _t3(d), torch.from_numpy(active)
+
+
+BAD_WALK_OPERANDS = {
+    "f64 origin": lambda o, d, a, k: ((o[0].double(), o[1], o[2]), d, a, k),
+    "short direction row": lambda o, d, a, k: (o, (d[0], d[1][:-1], d[2]), a, k),
+    "non-contiguous row": lambda o, d, a, k: (
+        o, tuple(torch.stack(d, 1)[:, i] for i in range(3)), a, k),
+    "f64 t_min": lambda o, d, a, k: (o, d, a, dict(k, t_min=torch.tensor(1e-3).double())),
+    "t_max of two values": lambda o, d, a, k: (o, d, a, dict(k, t_max=torch.ones(2))),
+    "accept_min row with a stride": lambda o, d, a, k: (
+        o, d, a, dict(k, accept_min=torch.zeros(2 * a.shape[0])[::2])),
+    "int activity mask": lambda o, d, a, k: (o, d, a.to(torch.int32), k),
+    "short activity mask": lambda o, d, a, k: (o, d, a[:-1], k),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_WALK_OPERANDS))
+def test_walk_kernel_refuses_operands_before_any_launch(case, monkeypatch):
+    """The CUDA wrapper checks every operand it hands the kernel and raises
+    before it allocates the live list or launches (here on CPU tensors,
+    with ops/kernels.launch replaced by a trap)."""
+    from webgl_raytracer_tpu_torch.ops import kernels
+    from webgl_raytracer_tpu_torch.ops.wavefront import scene_types
+
+    def trap(*a, **k):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(kernels, "launch", trap)
+    ps, o3, d3, active = _walk_batch()
+    o3, d3, active, kw = BAD_WALK_OPERANDS[case](
+        o3, d3, active, dict(t_min=float(T_MIN), t_max=1e20, accept_min=None))
+    with pytest.raises(ValueError):
+        PT._walk_cuda(ps.walk_tables, scene_types(ps), o3, d3, kw["t_min"], kw["t_max"],
+                      kw["accept_min"], None, active, True, 2048, 4)
+
+
+def test_walk_kernel_takes_the_callers_tensors(monkeypatch):
+    """Nothing is staged: the kernel gets the callers' rows and mask
+    themselves (step 1), one value as a pointer with step 0 (an expanded
+    origin, a 0-d t_min) or as a number, and the packed nodes; a masked
+    batch also gets its compaction's list and zeroed count, an unmasked
+    one none."""
+    from webgl_raytracer_tpu_torch.ops import kernels
+    from webgl_raytracer_tpu_torch.ops.wavefront import scene_types
+
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a) or 0)
+    ps, o3, d3, active = _walk_batch()
+    n = o3[0].shape[0]
+    o3 = (o3[0], torch.tensor(2.0).expand(n), o3[2])
+    tmin, lo = torch.tensor(T_MIN), torch.rand(n)
+    PT._walk_cuda(ps.walk_tables, scene_types(ps), o3, d3, tmin, 1e20, lo, None, active,
+                  True, 2048, 4)
+    (entry, device, *args), = calls
+    assert entry == "wrt_trace_stack_any" and device == o3[0].device
+    rows = args[:12]
+    assert all(a is b for a, b in zip(rows[0::2], (*o3, *d3)))
+    assert rows[1::2] == [1, 0, 1, 1, 1, 1]
+    assert args[12] is tmin and args[13:15] == [0, 0.0]
+    assert args[15] is None and args[16:18] == [0, 1e20]
+    assert args[18] is lo and args[19] == 1
+    assert args[21] is active and args[22] == n and args[23] is ps.walk_tables.nodes
+    live, count = args[33:35]
+    assert live.dtype == torch.int32 and live.shape == (n,)
+    assert count.dtype == torch.int32 and count.tolist() == [0]
+    calls.clear()
+    PT._walk_cuda(ps.walk_tables, scene_types(ps), o3, d3, tmin, 1e20, lo, None, None,
+                  False, 2048, 4)
+    (entry, _, *args), = calls
+    assert entry == "wrt_trace_stack_closest" and args[21] is None and args[33:35] == [None, None]
+
+
+def test_walk_operands_take_every_batch_a_stack_frame_traces(monkeypatch):
+    """Each batch the integrator hands the walk (primaries, bounces, the
+    joined shadow fan, env NEE, vis mode 2) passes the kernel's operand
+    checks as it is, so the card's frames launch with nothing staged."""
+    from webgl_raytracer_tpu_torch.env import EnvironmentController
+    from webgl_raytracer_tpu_torch.render import Renderer
+    from webgl_raytracer_tpu_torch.scene import compile_scene, molecule_geometry
+
+    seen = {True: 0, False: 0}
+    real = PT.walk_plain
+
+    def walk(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, any_hit, *steps):
+        PT.walk_args(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, *steps)
+        seen[any_hit] += 1
+        return real(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, any_hit,
+                     *steps)
+
+    monkeypatch.setattr(PT, "walk_plain", walk)
+    sky = EnvironmentController(device="cpu").load_analytic_sky(width=64, height=32)
+    r = Renderer(compile_scene(molecule_geometry("caffeine"), device="cpu"), env=sky,
+                 width=32, height=24, device="cpu")
+    r.settings.tracer = "stack"
+    r.render(1)
+    r.settings.vis_mode = 2
+    r.render(1)
+    assert seen[False] >= 5 and seen[True] >= 8, seen
+
+
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("name,clip", [("caffeine", None), ("tris", CLIP)],
                          ids=["caffeine", "tris clip"])

@@ -392,3 +392,120 @@ def test_volume_needs_its_buffers():
     on = dataclasses.replace(StaticFlags(), volume_enabled=True, volume_max_steps=8)
     with pytest.raises(ValueError, match="no volume"):
         PI.render_batch(pl.scene, on, u, px, py, 0)
+
+
+# ---------------------------------------------------------------------------
+# The march kernel's operands (ops/volume.march_args) and the plain
+# version's step counts: what the CPU can check of the CUDA path.
+
+@pytest.mark.parametrize("case", list(MARCH_CASES))
+def test_plain_march_counts_steps_per_lane(case):
+    """count_steps="lane" gives each lane's steps: 0 where the lane does not
+    march, at most max_steps, summing to count_steps=True's total, with
+    the same radiance and throughput."""
+    scale, step, threshold, steps = MARCH_CASES[case]
+    _, pb = _grid()
+    o, d, ts, tp, act = _rays(384)
+    args = (pb, _triple(o), _triple(d), torch.from_numpy(ts), torch.tensor(1e-4),
+            torch.tensor([0.435, 0.643, 1.0]), torch.tensor(scale), torch.tensor(1.0),
+            torch.tensor(step), torch.tensor(threshold), _triple(tp), torch.from_numpy(act),
+            steps)
+    rad, out, total = PV.march_plain(*args, count_steps=True)
+    lrad, lout, lanes = PV.march_plain(*args, count_steps="lane")
+    assert lanes.dtype == torch.int64 and lanes.shape == (384,)
+    assert int(lanes.sum()) == int(total) > 0 and int(lanes.max()) <= steps
+    ran = ((torch.stack(rad, 1) > 0).any(1)
+           | (torch.stack(out, 1) != torch.stack(_triple(tp), 1)).any(1))
+    assert not bool((lanes[~torch.from_numpy(act)] != 0).any())
+    assert bool((lanes[ran] > 0).all())
+    for a, b in zip(rad + out, lrad + lout):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="count_steps"):
+        PV.march_plain(*args, count_steps="rays")
+
+
+def _march_call(n=256):
+    _, pb = _grid()
+    o, d, ts, tp, act = _rays(n)
+    return dict(vol=pb, origin=_triple(o), direction=_triple(d),
+                t_surface=torch.from_numpy(ts), t_min=torch.tensor(1e-4),
+                color=torch.tensor([0.4, 0.6, 1.0]), density_scale=torch.tensor(2.0),
+                opacity=torch.tensor(1.0), step_size=torch.tensor(0.5),
+                threshold=torch.tensor(0.0), throughput=_triple(tp),
+                active=torch.from_numpy(act), max_steps=64)
+
+
+BAD_MARCH_OPERANDS = {
+    "f64 origin": lambda k: dict(k, origin=(k["origin"][0].double(), *k["origin"][1:])),
+    "short direction row": lambda k: dict(
+        k, direction=(k["direction"][0][:-1], *k["direction"][1:])),
+    "non-contiguous throughput": lambda k: dict(
+        k, throughput=tuple(torch.stack(k["throughput"], 1)[:, i] for i in range(3))),
+    "t_surface of two values": lambda k: dict(k, t_surface=torch.ones(2)),
+    "int activity mask": lambda k: dict(k, active=k["active"].to(torch.int32)),
+    "short activity mask": lambda k: dict(k, active=k["active"][:-1]),
+    "f64 grid": lambda k: dict(k, vol=dataclasses.replace(k["vol"],
+                                                          data=k["vol"].data.double())),
+    "max_steps beyond the cap": lambda k: dict(k, max_steps=PV.MAX_STEPS + 1),
+    "a t_min row": lambda k: dict(k, t_min=torch.full((256,), 1e-4)),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_MARCH_OPERANDS))
+def test_march_kernel_refuses_operands_before_any_launch(case, monkeypatch):
+    """The CUDA wrapper checks every operand it hands the kernel and raises
+    before it allocates its output or launches (here on CPU tensors,
+    with ops/kernels.launch replaced by a trap)."""
+    from webgl_raytracer_tpu_torch.ops import kernels
+
+    def trap(*a, **k):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(kernels, "launch", trap)
+    k = BAD_MARCH_OPERANDS[case](_march_call())
+    with pytest.raises(ValueError):
+        PV._march_cuda(*k.values(), 256)
+
+
+def test_march_kernel_takes_the_callers_tensors(monkeypatch):
+    """Nothing is staged: the kernel gets the callers' rows and mask
+    themselves (step 1), one value as a pointer with step 0 (an expanded
+    origin), the params vector, the grid, and its output."""
+    from webgl_raytracer_tpu_torch.ops import kernels
+
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a) or 0)
+    k = _march_call()
+    k["origin"] = (torch.tensor(0.5).expand(256), *k["origin"][1:])
+    PV._march_cuda(*k.values(), 256)
+    (entry, device, *args), = calls
+    assert entry == "wrt_volume_march" and device == torch.device("cpu")
+    rows = (*k["origin"], *k["direction"], k["t_surface"], *k["throughput"])
+    assert all(a is b for a, b in zip(args[0:20:2], rows))
+    assert args[1:20:2] == [0] + [1] * 9
+    assert args[20] is k["active"] and args[21] == 256
+    params, grid = args[22], args[23]
+    assert params.shape == (16,) and float(params[13]) == 0.5 and grid is k["vol"].data
+    assert args[24:28] == [GRID[2], GRID[1], GRID[0], 64]
+    assert args[28].shape == (6, 256) and len(args) == 29
+
+
+def test_march_operands_take_every_batch_a_volume_frame_marches(monkeypatch):
+    """Each batch the integrator hands the march (every bounce of every
+    chunk, on the cluster and the stack tracers) passes the kernel's
+    operand checks as it is."""
+    seen = []
+    real = PV.march_plain
+
+    def march(*a, **k):
+        PV.march_args(*a, **k)
+        seen.append(a[1][0].shape[0])
+        return real(*a, **k)
+
+    monkeypatch.setattr(PV, "march_plain", march)
+    monkeypatch.setenv("WRT_CHUNKS", "4")
+    _, pr = _volume_pair(32, dict(volume_max_steps=8, max_bounces=2))
+    pr.render(1)
+    pr.settings.tracer = "stack"
+    pr.render(1)
+    assert len(seen) >= 8 and sum(seen) > 0, seen

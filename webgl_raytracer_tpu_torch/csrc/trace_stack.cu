@@ -1,6 +1,6 @@
 // The stack tracer: closest hit and occlusion per ray by a walk of the
-// unified BVH with a private stack, one thread a ray (the reference
-// viewer's traceClosest / traceAny, webgl.js:556-880).
+// unified BVH with a private stack (the reference viewer's traceClosest /
+// traceAny, webgl.js:556-880).
 //
 // Replaces no TPU kernel: the JAX package walks with a jax.lax.while_loop
 // (webgl_raytracer_tpu/ops/traversal.py, _traverse, :130), which XLA runs
@@ -10,40 +10,67 @@
 // stack empties (hundreds of steps, at most 2048). Plain version and
 // semantics: ops/traversal.py (walk_plain).
 //
-// Bound on the H100: dependent loads. A step pops a node, reads its 36
-// bytes of box and links, and for a leaf up to 4 primitive rows of 48
-// bytes; the next pop depends on this one's result, so a ray's walk is a
-// chain of L1/L2 round trips, not of arithmetic (a step is some 40 FP32
+// Bound on the H100: dependent loads and divergence. A step pops a node,
+// reads its 32 bytes of box and links, and for a leaf up to 4 primitive
+// rows of 16-48 bytes; the next pop depends on this one's result, so a
+// ray's walk is a chain of L1/L2 round trips (a step is some 40 FP32
 // operations for the slab test and 25-100 a primitive). The tables of a
-// molecular scene (a few MB) stay in the 50 MB L2. The design keeps a
-// ray's state in registers and its stack of kStack ints in local memory
-// (L1), reads the rows straight from device memory through L1/L2, and
-// lets each thread run its own walk to its end: a warp runs as long as
-// its longest ray. Types are specialised at compile time (kSph, kCyl,
-// kTri), as the plain version intersects only the scene's types.
+// molecular scene (a few MB) stay in the 50 MB L2. Walks differ in length
+// (a mean of 6.4 units and a maximum of 101 on the 1000-sphere primaries),
+// and most rays of a shadow batch are inactive. The design, one thread a
+// ray:
+//   * a batch with an activity mask is compacted first (stack_compact_
+//     kernel): an inactive ray reads its activity byte (and, for a closest
+//     hit, its t_max), writes its miss and takes no lane of the walk; the
+//     walk runs over the live rays' list, its count read on the device,
+//     in ray order within each 1024-ray block, so that a warp walks
+//     neighbouring rays (in the order warps reached an atomic, the [3N]
+//     shadow fan walked 11% slower);
+//   * each ray operand is its own pointer (no staged operand), a row or
+//     one value for every ray (the primaries' origin, t_min);
+//   * one node is 32 bytes, two aligned float4 read with __ldg
+//     (ops/traversal.pack_nodes: bmin and leftFirst, bmax and the count or
+//     the right child); a leaf's primitive rows are float4s, the rows the
+//     scene's types need issued together with the type;
+//   * a ray's state in registers, its stack of kStack ints in local memory
+//     (L1); types specialised at compile time (kSph, kCyl, kTri), as the
+//     plain version intersects only the scene's types.
+// Measured slower on the H100 and left out (PERF.md, section 6): persistent
+// warps that refill idle lanes from a per-warp queue (Aila & Laine 2009),
+// and the node table in shared memory.
 //
 // Every expression is the plain version's (ops/intersect.py) in the same
 // operation order with float literals, built -fmad=false with IEEE sqrtf
 // and division, so t, slot, extra, cost and the occlusion bit equal the
 // plain walk's bit for bit. min and max propagate NaN, as torch.minimum
-// and torch.maximum do.
+// and torch.maximum do. A masked square root takes 1 where the plain
+// version takes 0 (IEEE sqrtf's slow path serves 0); the mask discards the
+// result either way. Each ray's walk order is fixed (right pushed, then
+// left), because cost counts it.
 //
 // Operands (device pointers, contiguous):
-//   od   f32[10,n] rows: origin xyz, direction xyz, t_min, t_max (the
-//                  closest t the walk starts from), accept_min, active (1/0)
-//   node_bmin, node_bmax f32[nodes,3]; node_meta i32[nodes,3]
-//                  (leftFirst, primCount, rightChild)
+//   ox, oy, oz, dx, dy, dz  origin and direction, each f32[n] (step 1) or
+//                  one f32 for every ray (step 0)
+//   t_min, t_max, accept_min  the same, or a value (null pointer); t_max is
+//                  the closest t the walk starts from
+//   active u8[n]   1 live, 0 inactive; null: every ray live
+//   nodes  f32[nodes,8] (ops/traversal.pack_nodes)
 //   prim_a, prim_b, prim_c f32[prims,4]; prim_type i32[prims]
-//   cp   f32[8]    clip plane: normal xyz, offset, side (world coordinates)
+//   cp     f32[8]  clip plane: normal xyz, offset, side (world coordinates);
+//                  null without a plane
+//   list   i32[n], count u32[1] zero: the live rays' list, with a mask only
 // Outputs, closest hit: t f32[n], slot i32[n] (-1 on a miss), extra
 // f32[n,3], cost i32[n]; occlusion: found u8[n], cost i32[n].
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kCompactThreads = 1024;   // the compaction pass's block: its rays stay in order
+constexpr unsigned kFullMask = 0xffffffffu;
 // The stack's slots: ops/traversal.py STACK_DEPTH, passed by the build
 // (ops/kernels.py compile_flags), so the plain walk and this kernel apply
 // one overflow guard.
@@ -89,11 +116,10 @@ __device__ __forceinline__ Slab slab(float o, float d, float lo, float hi) {
 }
 
 // ops/intersect.py intersect_aabb.
-__device__ __forceinline__ bool box_hit(const float* lo, const float* hi, V3 o, V3 d,
-                                        float t_max) {
-  const Slab x = slab(o.x, d.x, lo[0], hi[0]);
-  const Slab y = slab(o.y, d.y, lo[1], hi[1]);
-  const Slab z = slab(o.z, d.z, lo[2], hi[2]);
+__device__ __forceinline__ bool box_hit(float4 lo, float4 hi, V3 o, V3 d, float t_max) {
+  const Slab x = slab(o.x, d.x, lo.x, hi.x);
+  const Slab y = slab(o.y, d.y, lo.y, hi.y);
+  const Slab z = slab(o.z, d.z, lo.z, hi.z);
   const float tmin = nmax(nmax(nmax(x.near, y.near), z.near), 0.0f);
   const float tmax = nmin(nmin(nmin(x.far, y.far), z.far), t_max);
   return x.ok && y.ok && z.ok && tmax >= tmin;
@@ -106,7 +132,7 @@ __device__ __forceinline__ float sphere(V3 o, V3 d, V3 c, float r, float t_min) 
   const float cc = dot(oc, oc) - r * r;
   const float disc = b * b - cc;
   const bool ok = disc >= 0.0f;
-  const float sq = sqrtf(ok ? disc : 0.0f);
+  const float sq = sqrtf(ok ? disc : 1.0f);
   const float t0 = -b - sq;
   const float t1 = -b + sq;
   const float t = t0 > t_min ? t0 : t1;
@@ -131,7 +157,7 @@ __device__ __forceinline__ float cylinder(V3 o, V3 d, V3 p1, V3 p2, float r, flo
   const float c = dot(oc_perp, oc_perp) - r * r;
   const float disc = b * b - 4.0f * a * c;
   const bool body_ok = a > 1e-8f && disc >= 0.0f;
-  const float sq = sqrtf(body_ok ? disc : 0.0f);
+  const float sq = sqrtf(body_ok ? disc : 1.0f);
   const float denom = body_ok ? 2.0f * a : 1.0f;
   const float t1 = (-b - sq) / denom;
   const float t2 = (-b + sq) / denom;
@@ -192,53 +218,146 @@ __device__ __forceinline__ float triangle(V3 o, V3 d, V3 v0, V3 v1, V3 v2, float
   return tt;
 }
 
-__device__ __forceinline__ V3 row3(const float* __restrict__ p, int i) {
-  return {p[4 * i], p[4 * i + 1], p[4 * i + 2]};
+__device__ __forceinline__ V3 xyz(float4 a) { return {a.x, a.y, a.z}; }
+
+// A ray operand: a row of n floats (step 1) or one float for every ray
+// (step 0).
+struct Col {
+  const float* p;
+  int step;
+  __device__ __forceinline__ float at(long long i) const { return __ldg(p + i * step); }
+};
+
+// A ray operand that may also be a value v for every ray (null pointer).
+struct Val {
+  const float* p;
+  int step;
+  float v;
+  __device__ __forceinline__ float at(long long i) const {
+    return p == nullptr ? v : __ldg(p + i * step);
+  }
+};
+
+struct Rays {
+  Col ox, oy, oz, dx, dy, dz;
+  Val t_min, t_max, accept_min;
+  const unsigned char* active;
+  long long n;
+};
+
+struct Tables {
+  const float4* nodes;
+  const float4 *prim_a, *prim_b, *prim_c;
+  const int* prim_type;
+  const float* cp;
+  int clip_on, max_steps, max_leaf;
+};
+
+struct Outs {
+  float* t;
+  int* slot;
+  float* extra;
+  unsigned char* found;
+  int* cost;
+};
+
+template <bool kAny>
+__device__ __forceinline__ void store(const Outs& out, long long i, float closest, int best,
+                                      float e0, float e1, bool found, int cost) {
+  out.cost[i] = cost;
+  if (kAny) {
+    out.found[i] = found ? 1 : 0;
+  } else {
+    out.t[i] = closest;
+    out.slot[i] = best;
+    out.extra[3 * i] = e0;
+    out.extra[3 * i + 1] = e1;
+    out.extra[3 * i + 2] = 0.0f;
+  }
 }
 
+// The compaction pass of a batch with an activity mask, one thread a ray:
+// an inactive ray writes its outputs; a live ray's index is appended to
+// list (its count in *count, zero before the launch), in ray order within
+// a block, the blocks' runs reserved by one atomicAdd a block, so that a
+// warp of the walk takes neighbouring rays.
+template <bool kAny>
+__global__ void __launch_bounds__(kCompactThreads)
+stack_compact_kernel(Rays rays, Outs out, int* list, unsigned int* count) {
+  __shared__ unsigned int warp_base[kCompactThreads / 32];
+  __shared__ unsigned int block_base;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool in = i < rays.n;
+  const bool live = in && rays.active[i] != 0;
+  // An inactive ray walks nothing: t_max, slot -1, cost 0, not found.
+  if (in && !live) {
+    store<kAny>(out, i, kAny ? 0.0f : rays.t_max.at(i), -1, 0.0f, 0.0f, false, 0);
+  }
+  const unsigned m = __ballot_sync(kFullMask, live);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  if (lane == 0) warp_base[warp] = __popc(m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int total = 0;
+    for (int w = 0; w < kCompactThreads / 32; ++w) {
+      const unsigned int c = warp_base[w];
+      warp_base[w] = total;
+      total += c;
+    }
+    block_base = total ? atomicAdd(count, total) : 0u;
+  }
+  __syncthreads();
+  if (live) {
+    list[block_base + warp_base[warp] + __popc(m & ((1u << lane) - 1u))] =
+        static_cast<int>(i);
+  }
+}
+
+// The walk, one thread a ray: of the j-th ray of list (its count in
+// *n_live), or of ray j of the batch where list is null.
 template <bool kAny, bool kSph, bool kCyl, bool kTri>
 __global__ void __launch_bounds__(kThreads)
-trace_stack_kernel(const float* __restrict__ od, long long n,
-                   const float* __restrict__ node_bmin, const float* __restrict__ node_bmax,
-                   const int* __restrict__ node_meta, const float* __restrict__ prim_a,
-                   const float* __restrict__ prim_b, const float* __restrict__ prim_c,
-                   const int* __restrict__ prim_type, const float* __restrict__ cp,
-                   int clip_on, int max_steps, int max_leaf, float* __restrict__ t_out,
-                   int* __restrict__ slot_out, float* __restrict__ extra_out,
-                   unsigned char* __restrict__ found_out, int* __restrict__ cost_out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const V3 o = {od[i], od[n + i], od[2 * n + i]};
-  const V3 d = {od[3 * n + i], od[4 * n + i], od[5 * n + i]};
-  const float t_min = od[6 * n + i];
-  const float accept_min = od[8 * n + i];
-  float closest = od[7 * n + i];
-  int sp = od[9 * n + i] > 0.0f ? 1 : 0;
+trace_stack_kernel(Rays rays, Tables tab, Outs out, const int* list,
+                   const unsigned int* n_live) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= (list == nullptr ? rays.n : static_cast<long long>(*n_live))) return;
+  const long long i = list == nullptr ? j : list[j];
+  const V3 o = {rays.ox.at(i), rays.oy.at(i), rays.oz.at(i)};
+  const V3 d = {rays.dx.at(i), rays.dy.at(i), rays.dz.at(i)};
+  const float t_min = rays.t_min.at(i);
+  const float accept_min = kAny ? rays.accept_min.at(i) : 0.0f;
+  float closest = rays.t_max.at(i);
   int stack[kStack];
   stack[0] = 0;
-  int best = -1, cost = 0;
+  int sp = 1, best = -1, cost = 0;
   float e0 = 0.0f, e1 = 0.0f;
   bool found = false;
-  for (int step = 0; step < max_steps && sp > 0; ++step) {
+  for (int step = 0; step < tab.max_steps && sp > 0; ++step) {
     const int sp_pop = sp - 1;
     const int node = stack[sp_pop];
-    const int left = node_meta[3 * node], count = node_meta[3 * node + 1];
-    const int right = node_meta[3 * node + 2];
-    const bool hit = box_hit(node_bmin + 3 * node, node_bmax + 3 * node, o, d, closest);
+    const float4 lo = __ldg(tab.nodes + 2 * node);
+    const float4 hi = __ldg(tab.nodes + 2 * node + 1);
+    // pack_nodes: leftFirst, then the count of a leaf (> 0) or the
+    // complement of an inner node's right child (<= 0).
+    const int left = __float_as_int(lo.w), link = __float_as_int(hi.w);
+    const int count = link > 0 ? link : 0;
+    const bool hit = box_hit(lo, hi, o, d, closest);
     int tests = 0;
     if (hit && count > 0) {
-      for (int k = 0; k < max_leaf && k < count; ++k) {
+      for (int k = 0; k < tab.max_leaf && k < count; ++k) {
         const int slot = left + k;
-        const int type = prim_type[slot];
+        const int type = __ldg(tab.prim_type + slot);
+        const float4 a = __ldg(tab.prim_a + slot);
+        const float4 b = (kCyl || kTri) ? __ldg(tab.prim_b + slot) : float4{};
+        const float4 c = kTri ? __ldg(tab.prim_c + slot) : float4{};
         float t = -1.0f, x0 = 0.0f, x1 = 0.0f;
         if (kSph && type == kSphere) {
-          t = sphere(o, d, row3(prim_a, slot), prim_a[4 * slot + 3], t_min);
+          t = sphere(o, d, xyz(a), a.w, t_min);
         } else if (kCyl && type == kCylinder) {
-          t = cylinder(o, d, row3(prim_a, slot), row3(prim_b, slot), prim_a[4 * slot + 3],
-                       t_min, x0);
+          t = cylinder(o, d, xyz(a), xyz(b), a.w, t_min, x0);
         } else if (kTri && type == kTriangle) {
-          t = triangle(o, d, row3(prim_a, slot), row3(prim_b, slot), row3(prim_c, slot),
-                       t_min, cp, clip_on != 0, x0, x1);
+          t = triangle(o, d, xyz(a), xyz(b), xyz(c), t_min, tab.cp, tab.clip_on != 0, x0,
+                       x1);
         }
         if (kAny) {
           if (t > accept_min && t < closest) found = true;
@@ -253,7 +372,7 @@ trace_stack_kernel(const float* __restrict__ od, long long n,
     }
     const bool push = hit && count <= 0 && sp_pop <= kStack - 2 && !(kAny && found);
     if (push) {
-      stack[sp_pop] = right;
+      stack[sp_pop] = ~link;
       stack[sp_pop + 1] = left;
       sp = sp_pop + 2;
     } else {
@@ -262,45 +381,36 @@ trace_stack_kernel(const float* __restrict__ od, long long n,
     if (kAny && found) sp = 0;
     cost += 1 + tests;
   }
-  cost_out[i] = cost;
-  if (kAny) {
-    found_out[i] = found ? 1 : 0;
-  } else {
-    t_out[i] = closest;
-    slot_out[i] = best;
-    extra_out[3 * i] = e0;
-    extra_out[3 * i + 1] = e1;
-    extra_out[3 * i + 2] = 0.0f;
-  }
+  store<kAny>(out, i, closest, best, e0, e1, found, cost);
 }
 
+// A batch with an activity mask is compacted first (list and count the
+// caller's, count zero), so that the walk's warps hold live rays only.
 template <bool kAny, bool kSph, bool kCyl, bool kTri>
-int launch_typed(const float* od, long long n, const float* node_bmin, const float* node_bmax,
-                 const int* node_meta, const float* prim_a, const float* prim_b,
-                 const float* prim_c, const int* prim_type, const float* cp, int clip_on,
-                 int max_steps, int max_leaf, float* t_out, int* slot_out, float* extra_out,
-                 unsigned char* found_out, int* cost_out, void* stream) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  trace_stack_kernel<kAny, kSph, kCyl, kTri>
-      <<<static_cast<unsigned int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          od, n, node_bmin, node_bmax, node_meta, prim_a, prim_b, prim_c, prim_type, cp,
-          clip_on, max_steps, max_leaf, t_out, slot_out, extra_out, found_out, cost_out);
+int launch_typed(const Rays& rays, const Tables& tab, const Outs& out, int* list,
+                 unsigned int* count, void* stream) {
+  const unsigned int blocks = static_cast<unsigned int>((rays.n + kThreads - 1) / kThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool compact = rays.active != nullptr;
+  if (compact) {
+    const unsigned int scan_blocks =
+        static_cast<unsigned int>((rays.n + kCompactThreads - 1) / kCompactThreads);
+    stack_compact_kernel<kAny><<<scan_blocks, kCompactThreads, 0, s>>>(rays, out, list, count);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  trace_stack_kernel<kAny, kSph, kCyl, kTri><<<blocks, kThreads, 0, s>>>(
+      rays, tab, out, compact ? list : nullptr, count);
   return static_cast<int>(cudaGetLastError());
 }
 
 // types: 1 spheres, 2 cylinders, 4 triangles (ops/traversal.py type_mask).
 template <bool kAny>
-int launch(const float* od, long long n, const float* node_bmin, const float* node_bmax,
-           const int* node_meta, const float* prim_a, const float* prim_b, const float* prim_c,
-           const int* prim_type, int types, const float* cp, int clip_on, int max_steps,
-           int max_leaf, float* t_out, int* slot_out, float* extra_out,
-           unsigned char* found_out, int* cost_out, void* stream) {
-#define WRT_STACK_CASE(mask, s, c, t)                                                    \
-  case mask:                                                                             \
-    return launch_typed<kAny, s, c, t>(od, n, node_bmin, node_bmax, node_meta, prim_a,  \
-                                       prim_b, prim_c, prim_type, cp, clip_on,          \
-                                       max_steps, max_leaf, t_out, slot_out, extra_out, \
-                                       found_out, cost_out, stream);
+int launch(const Rays& rays, const Tables& tab, int types, const Outs& out, int* list,
+           unsigned int* count, void* stream) {
+#define WRT_STACK_CASE(mask, s, c, t) \
+  case mask:                          \
+    return launch_typed<kAny, s, c, t>(rays, tab, out, list, count, stream);
   switch (types) {
     WRT_STACK_CASE(0, false, false, false)
     WRT_STACK_CASE(1, true, false, false)
@@ -316,27 +426,66 @@ int launch(const float* od, long long n, const float* node_bmin, const float* no
 #undef WRT_STACK_CASE
 }
 
-}  // namespace
-
-extern "C" int wrt_trace_stack_closest(const float* od, long long n, const float* node_bmin,
-                                       const float* node_bmax, const int* node_meta,
-                                       const float* prim_a, const float* prim_b,
-                                       const float* prim_c, const int* prim_type, int types,
-                                       const float* cp, int clip_on, int max_steps,
-                                       int max_leaf, float* t_out, int* slot_out,
-                                       float* extra_out, int* cost_out, void* stream) {
-  return launch<false>(od, n, node_bmin, node_bmax, node_meta, prim_a, prim_b, prim_c,
-                       prim_type, types, cp, clip_on, max_steps, max_leaf, t_out, slot_out,
-                       extra_out, nullptr, cost_out, stream);
+Rays make_rays(const float* ox, int ox_step, const float* oy, int oy_step, const float* oz,
+               int oz_step, const float* dx, int dx_step, const float* dy, int dy_step,
+               const float* dz, int dz_step, const float* t_min, int t_min_step,
+               float t_min_value, const float* t_max, int t_max_step, float t_max_value,
+               const float* accept_min, int accept_step, float accept_value,
+               const unsigned char* active, long long n) {
+  return Rays{Col{ox, ox_step},
+              Col{oy, oy_step},
+              Col{oz, oz_step},
+              Col{dx, dx_step},
+              Col{dy, dy_step},
+              Col{dz, dz_step},
+              Val{t_min, t_min_step, t_min_value},
+              Val{t_max, t_max_step, t_max_value},
+              Val{accept_min, accept_step, accept_value},
+              active,
+              n};
 }
 
-extern "C" int wrt_trace_stack_any(const float* od, long long n, const float* node_bmin,
-                                   const float* node_bmax, const int* node_meta,
-                                   const float* prim_a, const float* prim_b,
-                                   const float* prim_c, const int* prim_type, int types,
-                                   const float* cp, int clip_on, int max_steps, int max_leaf,
-                                   unsigned char* found_out, int* cost_out, void* stream) {
-  return launch<true>(od, n, node_bmin, node_bmax, node_meta, prim_a, prim_b, prim_c,
-                      prim_type, types, cp, clip_on, max_steps, max_leaf, nullptr, nullptr,
-                      nullptr, found_out, cost_out, stream);
+Tables make_tables(const float* nodes, const float* prim_a, const float* prim_b,
+                   const float* prim_c, const int* prim_type, const float* cp, int clip_on,
+                   int max_steps, int max_leaf) {
+  return Tables{reinterpret_cast<const float4*>(nodes),
+                reinterpret_cast<const float4*>(prim_a),
+                reinterpret_cast<const float4*>(prim_b),
+                reinterpret_cast<const float4*>(prim_c),
+                prim_type, cp, clip_on, max_steps, max_leaf};
+}
+
+}  // namespace
+
+// The two entry points take the same operands up to the outputs: the ray
+// operands (ox ... accept_value, active, n), the tables (nodes ...
+// prim_type), the type bits, the clip operand, max_steps, max_leaf and the
+// live list with its count.
+#define WRT_STACK_OPERANDS                                                                 \
+  const float *ox, int ox_step, const float *oy, int oy_step, const float *oz, int oz_step, \
+      const float *dx, int dx_step, const float *dy, int dy_step, const float *dz,         \
+      int dz_step, const float *t_min, int t_min_step, float t_min_value,                  \
+      const float *t_max, int t_max_step, float t_max_value, const float *accept_min,      \
+      int accept_step, float accept_value, const unsigned char *active, long long n,       \
+      const float *nodes, const float *prim_a, const float *prim_b, const float *prim_c,   \
+      const int *prim_type, int types, const float *cp, int clip_on, int max_steps,        \
+      int max_leaf, int *list, unsigned int *count
+#define WRT_STACK_MAKE                                                                     \
+  make_rays(ox, ox_step, oy, oy_step, oz, oz_step, dx, dx_step, dy, dy_step, dz, dz_step,  \
+            t_min, t_min_step, t_min_value, t_max, t_max_step, t_max_value, accept_min,    \
+            accept_step, accept_value, active, n),                                         \
+      make_tables(nodes, prim_a, prim_b, prim_c, prim_type, cp, clip_on, max_steps,        \
+                  max_leaf)
+
+extern "C" int wrt_trace_stack_closest(WRT_STACK_OPERANDS, float* t_out, int* slot_out,
+                                       float* extra_out, int* cost_out, void* stream) {
+  return launch<false>(WRT_STACK_MAKE, types,
+                       Outs{t_out, slot_out, extra_out, nullptr, cost_out}, list, count,
+                       stream);
+}
+
+extern "C" int wrt_trace_stack_any(WRT_STACK_OPERANDS, unsigned char* found_out,
+                                   int* cost_out, void* stream) {
+  return launch<true>(WRT_STACK_MAKE, types,
+                      Outs{nullptr, nullptr, nullptr, found_out, cost_out}, list, count, stream);
 }

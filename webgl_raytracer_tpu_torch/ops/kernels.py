@@ -173,11 +173,19 @@ def library() -> ctypes.CDLL:
                                             ptr, ptr, ptr, ptr]
     lib.wrt_sweep_sol.restype = i32
     lib.wrt_sweep_sol.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+    f32 = ctypes.c_float
+    # The march: the ten ray operands each as (pointer, step), active, n,
+    # params, grid, nx, ny, nz, max_steps, out and the stream.
     lib.wrt_volume_march.restype = i32
-    lib.wrt_volume_march.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
-    # The stack walk: od, n, the seven tables, the type bits, cp, clip_on,
-    # max_steps, max_leaf, then the outputs and the stream.
-    walk = [ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, i32, i32, i32]
+    lib.wrt_volume_march.argtypes = [ptr, i32] * 10 + [ptr, i64, ptr, ptr, i32, i32, i32,
+                                                       i32, ptr, ptr]
+    # The stack walk: origin and direction each as (pointer, step), t_min,
+    # t_max and accept_min each as (pointer, step, value), active, n,
+    # nodes, the four primitive tables, the type bits, cp, clip_on,
+    # max_steps, max_leaf, the live list and its count, then the outputs
+    # and the stream.
+    walk = ([ptr, i32] * 6 + [ptr, i32, f32] * 3 + [ptr, i64] + [ptr] * 5
+            + [i32, ptr, i32, i32, i32, ptr, ptr])
     lib.wrt_trace_stack_closest.restype = i32
     lib.wrt_trace_stack_closest.argtypes = walk + [ptr, ptr, ptr, ptr, ptr]
     lib.wrt_trace_stack_any.restype = i32
@@ -194,8 +202,10 @@ def launch(entry: str, device, *args) -> int:
     """Call the library's entry point `entry` with args and the current
     stream of `device`, with `device` the current device: the library's
     own CUDA runtime launches on the calling thread's current device,
-    whatever device the stream belongs to. Returns the entry's CUDA error
-    code (0: launched)."""
+    whatever device the stream belongs to. A tensor among args stands for
+    its data pointer, None for a null pointer. Returns the entry's CUDA
+    error code (0: launched)."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         return getattr(library(), entry)(*args, stream_handle(device))
 
@@ -206,3 +216,61 @@ def check_operand(x: torch.Tensor, dtype, device) -> None:
         raise ValueError(
             f"kernel operand must be contiguous {dtype} on {device}; got "
             f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+
+
+# The stack walk's live list (csrc/trace_stack.cu) and the march's grid
+# (csrc/volume_march.cu) are indexed with 32-bit ints.
+MAX_RAYS = (1 << 31) - 1
+
+
+def ray_operand(x, n: int, device, name: str) -> tuple:
+    """x, a ray operand of n rays, as a kernel takes it: (tensor, step).
+    An f32 tensor on `device` of one value (0-d, one element, or expanded
+    with every stride 0) is (x, 0); a contiguous f32 [n] row is (x, 1).
+    Raises on anything else (another type, device or shape, a row with
+    other strides)."""
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"{name} must be a tensor, not {type(x).__name__}")
+    if x.dtype != torch.float32 or x.device != device:
+        raise ValueError(f"{name} must be f32 on {device}, not {x.dtype} on {x.device}")
+    if (x.numel() == 1 and x.dim() <= 1) or (tuple(x.shape) == (n,) and x.stride(0) == 0):
+        return x, 0
+    if tuple(x.shape) != (n,):
+        raise ValueError(f"{name} must have shape ({n},) or hold one value, not "
+                         f"{tuple(x.shape)}")
+    check_operand(x, torch.float32, device)
+    return x, 1
+
+
+def value_operand(x, n: int, device, name: str) -> tuple:
+    """x, a number or a ray operand (ray_operand), as a kernel takes it:
+    (tensor or None, step, value); a number is (None, 0, x)."""
+    if isinstance(x, torch.Tensor):
+        return (*ray_operand(x, n, device, name), 0.0)
+    return None, 0, float(x)
+
+
+def mask_operand(active, n: int, device):
+    """The activity mask as a kernel takes it: None (every ray live) or a
+    contiguous bool [n] tensor on `device`; raises on anything else."""
+    if active is None:
+        return None
+    if not isinstance(active, torch.Tensor) or tuple(active.shape) != (n,):
+        raise ValueError(f"active must be None or a tensor of shape ({n},)")
+    check_operand(active, torch.bool, device)
+    return active
+
+
+def ray_count(n: int) -> int:
+    """n, raising beyond MAX_RAYS."""
+    if n > MAX_RAYS:
+        raise ValueError(f"{n} rays: the kernel takes at most {MAX_RAYS}")
+    return n
+
+
+def live_list(n: int, device) -> tuple:
+    """(list i32[n], count i32[1] zero): the scratch of the stack walk's
+    live-ray compaction (csrc/trace_stack.cu), allocated and zeroed on the
+    stream, so that a captured graph replays the zeroing."""
+    return (torch.empty(n, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))

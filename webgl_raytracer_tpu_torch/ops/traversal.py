@@ -13,10 +13,12 @@ or after max_steps iterations.
 trace_closest / trace_any
     Dispatch by tensor device, as ops/trace.py does: a CUDA tensor takes
     the kernel (csrc/trace_stack.cu, launched as trace_stack_closest and
-    trace_stack_any; one thread a ray), which raises when it cannot be
-    built or launched; a CPU tensor takes the plain walk; impl="plain"
-    forces the plain walk. No host value is read on the kernel's path,
-    so a frame on the stack tracer can be captured as a CUDA graph.
+    trace_stack_any; one thread a ray, a batch with an activity mask
+    compacted to its live rays first), which raises when its operands
+    are not what it takes (walk_args) or it cannot be built or launched;
+    a CPU tensor takes the plain walk; impl="plain" forces the plain
+    walk. No host value is read on the kernel's path, so a frame on the
+    stack tracer can be captured as a CUDA graph.
 walk_plain
     The plain walk: the JAX loop body, step by step, over the rays whose
     stack is not empty at that step (the other rays do nothing in a step
@@ -39,12 +41,16 @@ Semantics (the JAX _traverse's, which the kernel repeats):
   * an inactive ray starts with an empty stack: a miss, cost 0.
 
 Rays are component triples of [N] tensors (ops/vec3.py); t_min, t_max
-and accept_min are numbers, 0-d tensors or [N] tensors. The tables are
-the scene's walk_tables (scene/compile.py), in world coordinates.
+and accept_min are numbers, 0-d tensors or [N] tensors; active is None
+or bool [N]. The kernel takes each as it is (walk_args): on a CUDA
+tensor the rows must be contiguous f32. The tables are the scene's
+walk_tables (scene/compile.py), in world coordinates, with the kernel's
+packed nodes (pack_nodes).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..scene.bvh import DEFAULT_MAX_DEPTH, PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
@@ -229,27 +235,41 @@ def walk_plain(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, an
     return closest, best, extra, cost, found
 
 
-def walk_operand(o3, d3, t_min, t_max, accept_min, active):
-    """od f32[10,N]: rows 0-2 origin, 3-5 direction, 6 t_min, 7 t_max
-    (the closest t a walk starts from), 8 accept_min, 9 activity (1/0).
-    Built on the device only, so that a captured frame can stage it."""
-    n = o3[0].shape[0]
-    device = o3[0].device
-    act = (torch.ones(n, dtype=torch.float32, device=device) if active is None
-           else active.to(torch.float32))
-    return torch.stack([*o3, *d3, *(_row(x, n, device) for x in (t_min, t_max, accept_min)),
-                        act]).contiguous()
+def check_links(node_meta) -> None:
+    """Raise unless the host node rows (numpy i32[Nn,3]) follow the BVH's
+    convention (scene/bvh.py), which pack_nodes encodes: a leaf (count > 0)
+    has right child -1, an inner node count 0 and right child >= -1."""
+    meta = np.asarray(node_meta)
+    count, right = meta[:, 1], meta[:, 2]
+    ok = np.where(count > 0, right == -1, (count == 0) & (right >= -1))
+    if not ok.all():
+        bad = int(np.flatnonzero(~ok)[0])
+        raise ValueError(f"BVH node {bad} has links {meta[bad].tolist()}: a leaf's right "
+                         "child must be -1, an inner node's count 0")
+
+
+def pack_nodes(bmin, bmax, meta) -> torch.Tensor:
+    """The kernel's node table f32[Nn,8], built with tensor ops on the
+    tables' device: a node is two float4s, (bmin xyz, leftFirst) and (bmax
+    xyz, link), the ints stored by their bits; link is a leaf's count
+    (> 0) or the complement of an inner node's right child (~right <= 0;
+    an inner node's count is 0). Rows must pass check_links."""
+    left, count, right = meta.unbind(1)
+    link = torch.where(count > 0, count, ~right)
+    return torch.cat([bmin.contiguous().view(torch.int32), left[:, None],
+                      bmax.contiguous().view(torch.int32), link[:, None]],
+                     dim=1).view(torch.float32)
 
 
 def clip_operand(clip, device):
-    """(cp f32[8], clip_on): the plane's normal xyz, offset and side in
-    world coordinates, then zeros."""
+    """cp f32[8]: the plane's normal xyz, offset and side in world
+    coordinates, then zeros; None without a plane."""
     clip = _clip_triple(clip, device)
     if clip is None:
-        return torch.zeros(8, dtype=torch.float32, device=device), False
+        return None
     normal, offset, side = clip
     return torch.cat([torch.stack([*normal, offset, side]),
-                      torch.zeros(3, dtype=torch.float32, device=device)]).contiguous(), True
+                      torch.zeros(3, dtype=torch.float32, device=device)])
 
 
 def type_mask(types) -> int:
@@ -258,20 +278,42 @@ def type_mask(types) -> int:
     return int(has_sph) | 2 * int(has_cyl) | 4 * int(has_tri)
 
 
-def _walk_cuda(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, any_hit,
-               max_steps, max_leaf):
-    from .kernels import check_operand, launch
+def walk_args(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, max_steps,
+              max_leaf) -> tuple:
+    """The stack kernel's arguments before its live list and outputs, each
+    operand checked first (ValueError: an origin or direction component
+    that is neither one f32 value nor a contiguous f32 [N] row on the
+    rays' device, a t_min / t_max / accept_min that is neither that nor a
+    number, an activity mask that is not bool [N], a table of the wrong
+    type). Tensors stand for their pointers (ops/kernels.launch); the
+    operands are the callers' tensors themselves, nothing is staged."""
+    from .kernels import check_operand, mask_operand, ray_count, ray_operand, value_operand
 
-    od = walk_operand(o3, d3, t_min, t_max, accept_min, active)
-    device = od.device
-    cp, clip_on = clip_operand(clip, device)
-    n = od.shape[1]
-    tabs = [(tables.node_bmin, torch.float32), (tables.node_bmax, torch.float32),
-            (tables.node_meta, torch.int32), (tables.prim_a, torch.float32),
+    n = ray_count(o3[0].shape[0])
+    device = o3[0].device
+    rows = [v for x, name in zip((*o3, *d3), ("ox", "oy", "oz", "dx", "dy", "dz"))
+            for v in ray_operand(x, n, device, name)]
+    values = [v for x, name in ((t_min, "t_min"), (t_max, "t_max"),
+                                (0.0 if accept_min is None else accept_min, "accept_min"))
+              for v in value_operand(x, n, device, name)]
+    tabs = [(tables.nodes, torch.float32), (tables.prim_a, torch.float32),
             (tables.prim_b, torch.float32), (tables.prim_c, torch.float32),
             (tables.prim_type, torch.int32)]
-    for x, dt in [(od, torch.float32), (cp, torch.float32), *tabs]:
+    for x, dt in tabs:
         check_operand(x, dt, device)
+    cp = clip_operand(clip, device)
+    return (*rows, *values, mask_operand(active, n, device), n, *(x for x, _ in tabs),
+            type_mask(types), cp, int(cp is not None), int(max_steps), int(max_leaf))
+
+
+def _walk_cuda(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, any_hit,
+               max_steps, max_leaf):
+    from .kernels import launch, live_list
+
+    args = walk_args(tables, types, o3, d3, t_min, t_max, accept_min, clip, active,
+                     max_steps, max_leaf)
+    device = o3[0].device
+    n = o3[0].shape[0]
     cost = torch.empty(n, dtype=torch.int32, device=device)
     if any_hit:
         name = "trace_stack_any"
@@ -286,10 +328,9 @@ def _walk_cuda(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, an
         outs = (t, slot, extra, cost)
         found = None
     if n:
-        err = launch(
-            "wrt_" + name, device, od.data_ptr(), n, *(x.data_ptr() for x, _ in tabs),
-            type_mask(types), cp.data_ptr(), int(clip_on), int(max_steps),
-            int(max_leaf), *(x.data_ptr() for x in outs))
+        # A batch with a mask is compacted to its live rays first.
+        live = (None, None) if active is None else live_list(n, device)
+        err = launch("wrt_" + name, device, *args, *live, *outs)
         if err != 0:
             raise RuntimeError(f"wrt_{name} failed: CUDA error {err}")
         launches[name] += 1

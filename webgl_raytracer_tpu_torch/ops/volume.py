@@ -9,7 +9,8 @@ clamp((1 - exp(-density * density_scale * dt)) * opacity) and scales the
 throughput by 1 - alpha, until the throughput falls below 1e-3.
 
 march_volume
-    The kernel's wrapper (csrc/volume_march.cu, one thread a ray), for the
+    The kernel's wrapper (csrc/volume_march.cu, one thread a ray, on the
+    callers' own tensors: march_args), for the
     JAX package's jax.lax.fori_loop at ops/volume.py:95, which XLA runs as
     one device loop: written as tensor operations, each step is some 60
     launches, and a frame marches max_steps (256) steps in every bounce of
@@ -25,10 +26,12 @@ march_plain
     multiplies its throughput by 1, so the kernel's early exit gives the
     same bits.
 
-Vectors are component triples of [N] tensors (ops/vec3.py); the uniforms
-(t_min, colour, density scale, opacity, step, threshold) are 0-d tensors
-or numbers, read on the device only, so a frame that marches can be
-captured. On CPU tensors exp goes through ops/vec3 (float64, rounded once).
+Vectors are component triples of [N] tensors (ops/vec3.py; on a CUDA
+tensor each a contiguous f32 row or one value, which the kernel reads as
+they are); active is None or bool [N]; the uniforms (t_min, colour,
+density scale, opacity, step, threshold) are 0-d tensors or numbers,
+read on the device only, so a frame that marches can be captured. On CPU
+tensors exp goes through ops/vec3 (float64, rounded once).
 """
 
 from __future__ import annotations
@@ -128,11 +131,14 @@ def march_volume(vol: VolumeBuffers, origin, direction, t_surface, t_min, color,
 
 def march_plain(vol: VolumeBuffers, origin, direction, t_surface, t_min, color,
                 density_scale, opacity, step_size, threshold, throughput, active,
-                max_steps: int, count_steps: bool = False):
+                max_steps: int, count_steps=False):
     """Plain version of the kernel: the masked loop of the JAX package's
     march_volume, every lane through all max_steps steps. count_steps
-    also returns the lane-steps the kernel runs (lanes alive at a step's
-    start, summed over the steps) as a 0-d int64 tensor."""
+    True also returns the lane-steps the kernel runs (lanes alive at a
+    step's start, summed over the steps) as a 0-d int64 tensor;
+    count_steps "lane" returns each lane's steps instead, int64 [N]."""
+    if count_steps not in (False, True, "lane"):
+        raise ValueError(f"count_steps must be False, True or 'lane', not {count_steps!r}")
     device = t_surface.device
     t_min, step, density_scale, opacity, threshold = (
         _f32(x, device) for x in (t_min, step_size, density_scale, opacity, threshold))
@@ -149,10 +155,10 @@ def march_plain(vol: VolumeBuffers, origin, direction, t_surface, t_min, color,
     radiance = (zero, zero, zero)
     tp = throughput
     alive = run
-    steps = torch.zeros((), dtype=torch.int64, device=device)
+    steps = torch.zeros(t_surface.shape, dtype=torch.int64, device=device)
     for i in range(max_steps):
         if count_steps:
-            steps = steps + alive.sum()
+            steps = steps + alive
         t_cur = t_enter + step * float(i)
         inside = alive & (t_cur <= t_exit)
         dt = torch.minimum(step, t_exit - t_cur)
@@ -169,53 +175,67 @@ def march_plain(vol: VolumeBuffers, origin, direction, t_surface, t_min, color,
         alive = alive & ~dead & (t_cur + step <= t_exit)
     tp = V.where(run, tp, throughput)
     if count_steps:
-        return radiance, tp, steps
+        return radiance, tp, steps if count_steps == "lane" else steps.sum()
     return radiance, tp
 
 
-def march_operands(vol: VolumeBuffers, origin, direction, t_surface, t_min, color,
-                   density_scale, opacity, step_size, threshold, throughput, active):
-    """(od f32[11,N], params f32[16]) of the kernel: od rows 0-2 origin,
-    3-5 direction, 6 t_surface, 7-9 throughput, 10 activity (1/0); params
-    0-2 vmin, 3-5 vmax, 6 max_value, 7 t_min, 8-10 colour, 11 density
-    scale, 12 opacity, 13 step, 14 threshold, 15 unused. Built on the
-    device only (no host value), so a captured frame can stage them."""
-    n = t_surface.shape[0]
-    device = t_surface.device
-    act = (torch.ones(n, dtype=torch.float32, device=device) if active is None
-           else active.to(torch.float32))
-    od = torch.stack([*origin, *direction, t_surface, *throughput, act]).contiguous()
+def march_params(vol: VolumeBuffers, t_min, color, density_scale, opacity, step_size,
+                 threshold) -> torch.Tensor:
+    """The kernel's params f32[16]: 0-2 vmin, 3-5 vmax, 6 max_value, 7
+    t_min, 8-10 colour, 11 density scale, 12 opacity, 13 step, 14
+    threshold, 15 unused. Built on the device only (no host value), so a
+    captured frame can build it."""
+    device = vol.data.device
     scalars = [_f32(x, device).reshape(-1) for x in
                (vol.max_value, t_min, color, density_scale, opacity, step_size,
                 threshold)]
     if any(s.numel() != w for s, w in zip(scalars, (1, 1, 3, 1, 1, 1, 1))):
         raise ValueError("the march's t_min, colour and step settings must be one "
                          "value for the whole batch")
-    params = torch.cat([vol.vmin.reshape(3), vol.vmax.reshape(3), *scalars,
-                        torch.zeros(1, dtype=torch.float32, device=device)]).contiguous()
-    return od, params
+    return torch.cat([vol.vmin.reshape(3), vol.vmax.reshape(3), *scalars,
+                      torch.zeros(1, dtype=torch.float32, device=device)])
+
+
+def march_args(vol: VolumeBuffers, origin, direction, t_surface, t_min, color,
+               density_scale, opacity, step_size, threshold, throughput, active,
+               max_steps: int) -> tuple:
+    """The kernel's arguments before its output, each operand
+    checked first (ValueError: a ray operand that is neither one f32 value
+    nor a contiguous f32 [N] row on the rays' device, an activity mask
+    that is not bool [N], a
+    grid that is not (nz, ny, nx) f32, max_steps out of range, uniforms
+    that are not one value). Tensors stand for their pointers
+    (ops/kernels.launch); the rows are the callers' own, nothing is
+    staged."""
+    from .kernels import check_operand, mask_operand, ray_count, ray_operand
+
+    if not 0 <= max_steps <= MAX_STEPS:
+        raise ValueError(f"max_steps must lie in [0, {MAX_STEPS}], not {max_steps}")
+    n = ray_count(t_surface.shape[0])
+    device = t_surface.device
+    names = ("ox", "oy", "oz", "dx", "dy", "dz", "t_surface", "tpx", "tpy", "tpz")
+    rows = [v for x, name in zip((*origin, *direction, t_surface, *throughput), names)
+            for v in ray_operand(x, n, device, name)]
+    check_operand(vol.data, torch.float32, device)
+    ray_count(vol.data.numel())     # the kernel indexes the grid with 32-bit ints
+    if tuple(vol.data.shape) != (vol.nz, vol.ny, vol.nx):
+        raise ValueError(f"volume data {tuple(vol.data.shape)} is not "
+                         f"(nz, ny, nx) = {(vol.nz, vol.ny, vol.nx)}")
+    params = march_params(vol, t_min, color, density_scale, opacity, step_size, threshold)
+    return (*rows, mask_operand(active, n, device), n, params, vol.data, vol.nx, vol.ny,
+            vol.nz, int(max_steps))
 
 
 def _march_cuda(vol, origin, direction, t_surface, t_min, color, density_scale, opacity,
                 step_size, threshold, throughput, active, max_steps, n):
-    from .kernels import check_operand, launch
+    from .kernels import launch
 
-    if not 0 <= max_steps <= MAX_STEPS:
-        raise ValueError(f"max_steps must lie in [0, {MAX_STEPS}], not {max_steps}")
-    od, params = march_operands(vol, origin, direction, t_surface, t_min, color,
-                                density_scale, opacity, step_size, threshold,
-                                throughput, active)
-    device = od.device
-    for x in (od, params, vol.data):
-        check_operand(x, torch.float32, device)
-    if tuple(vol.data.shape) != (vol.nz, vol.ny, vol.nx):
-        raise ValueError(f"volume data {tuple(vol.data.shape)} is not "
-                         f"(nz, ny, nx) = {(vol.nz, vol.ny, vol.nx)}")
+    args = march_args(vol, origin, direction, t_surface, t_min, color, density_scale,
+                      opacity, step_size, threshold, throughput, active, max_steps)
+    device = t_surface.device
     out = torch.empty((6, n), dtype=torch.float32, device=device)
     if n:
-        err = launch("wrt_volume_march", device, od.data_ptr(), n, params.data_ptr(),
-                     vol.data.data_ptr(), vol.nx, vol.ny, vol.nz, int(max_steps),
-                     out.data_ptr())
+        err = launch("wrt_volume_march", device, *args, out)
         if err != 0:
             raise RuntimeError(f"wrt_volume_march failed: CUDA error {err}")
         launches["volume_march"] += 1

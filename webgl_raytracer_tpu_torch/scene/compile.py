@@ -26,7 +26,8 @@ the scene and every .to() copy of it. They stay numpy arrays on the host
 whatever the scene's device. The stack tracer (ops/traversal.py) walks
 the BVH and the primitive table on the scene's device:
 `SceneBuffers.walk_tables`, copied from the host tables on the first
-stack trace and kept with the scene, as trace_operands is.
+stack trace and kept with the scene, as trace_operands is, with the
+kernel's packed node table built from them on the device.
 """
 
 from __future__ import annotations
@@ -103,6 +104,7 @@ class WalkTables:
     prim_type: torch.Tensor         # i32[Np]
     prim_local: torch.Tensor        # i32[Np]
     prim_color: torch.Tensor        # f32[Np,3]
+    nodes: torch.Tensor             # f32[Nn,8] the kernel's nodes (ops/traversal.pack_nodes)
 
 
 @dataclass
@@ -154,10 +156,16 @@ class SceneBuffers:
     @cached_property
     def walk_tables(self) -> WalkTables:
         """The stack walk's tables on this scene's device, copied from the
-        host tables once per scene (ops/traversal.py)."""
+        host tables once per scene, and the kernel's packed nodes built
+        from them there (ops/traversal.py)."""
+        from ..ops.traversal import check_links, pack_nodes
+
         tables = self.pick_tables
-        return WalkTables(**{name: torch.tensor(getattr(tables, name), device=self.device)
-                             for name in WALK_FIELDS})
+        check_links(tables.node_meta)
+        rows = {name: torch.tensor(getattr(tables, name), device=self.device)
+                for name in WALK_FIELDS}
+        return WalkTables(**rows, nodes=pack_nodes(rows["node_bmin"], rows["node_bmax"],
+                                                   rows["node_meta"]))
 
 
 def scene_from_numpy(fields_: dict, device=None) -> SceneBuffers:
