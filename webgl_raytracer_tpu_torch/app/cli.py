@@ -13,6 +13,10 @@ one option the JAX CLI lacks):
   python -m webgl_raytracer_tpu_torch.app.cli info --pdb-file TSTP.pdb --style cartoon
   python -m webgl_raytracer_tpu_torch.app.cli serve --scene spheres1000 --port 8000
 
+--telemetry FILE (render, bench) turns the recorder on before the scene
+loads and writes its spans, counters and frame rows to FILE as JSON at
+the end (utils/telemetry.py).
+
 --devices N renders over the first N cards (parallel/mesh.py: the scene
 copied to each, the rays split into one contiguous shard a card), or
 with --device cpu over N shards on the CPU; more cards than are visible
@@ -37,7 +41,7 @@ from ..models.molecular import BUILTIN_MOLECULE_NAMES
 from ..parallel import make_mesh
 from ..render import Renderer, RenderSettings
 from ..render.picking import hover_at_pixel
-from ..utils import create_logger, encode_png, format_poly_count
+from ..utils import create_logger, encode_png, format_poly_count, telemetry
 from .pipeline import DISPLAY_STYLES, load_molecule_scene, load_random_spheres, load_test_primitives
 
 REFUSED = {
@@ -375,6 +379,12 @@ def scene_info(loaded, mol=None) -> dict:
     return info
 
 
+def _add_telemetry_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--telemetry", metavar="FILE",
+                   help="record spans and counters (utils/telemetry.py) from before the "
+                        "scene loads and write them to FILE as JSON at the end")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="webgl_raytracer_tpu_torch",
@@ -388,6 +398,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_render.add_argument("--out", help="output PNG path")
     p_render.add_argument("--save-checkpoint", help="write accumulation state (.npz)")
     p_render.add_argument("--resume", help="resume accumulation from a checkpoint")
+    _add_telemetry_arg(p_render)
     p_render.set_defaults(func=cmd_render)
 
     p_serve = sub.add_parser("serve", help="interactive web viewer (HTTP)")
@@ -400,6 +411,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_bench = sub.add_parser("bench", help="time steady-state frames")
     _add_scene_args(p_bench)
     _add_render_args(p_bench)
+    _add_telemetry_arg(p_bench)
     p_bench.set_defaults(func=cmd_bench)
 
     p_pick = sub.add_parser("pick", help="CPU ray pick at a pixel")
@@ -418,7 +430,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_ported(args)
-    return args.func(args)
+    path = getattr(args, "telemetry", None)
+    if not path:
+        return args.func(args)
+    telemetry.enable()
+    try:
+        rc = args.func(args)
+        telemetry.export(path)
+    finally:
+        telemetry.disable()
+    return rc
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import os
 
 from ..device import resolve_device
 from ..ops.envmap import EnvBuffers
+from ..utils import telemetry
 from .cdf import make_env_buffers
 from .hdr import load_hdr
 from .sky import ANALYTIC_SKY_ID, analytic_sky_cache_key, generate_analytic_sky
@@ -47,6 +48,7 @@ class EnvironmentController:
 
         return self._select(os.path.abspath(path), build)
 
+    @telemetry.spanned("env.sky")
     def load_analytic_sky(self, settings=None, **kw) -> EnvBuffers:
         """Bake the Preetham sky and its CDFs on the device."""
         def build():

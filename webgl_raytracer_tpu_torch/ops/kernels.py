@@ -21,12 +21,15 @@ from pathlib import Path
 
 import torch
 
+from ..utils import telemetry
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
            "trace_closest_perray.cu", "trace_any_perray.cu",
-           "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu", "trace_stack.cu")
+           "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu", "trace_stack.cu",
+           "telemetry.cu")
 HEADERS = ("intersect.cuh",)
 
 # The trace kernels that have a cost form: the same source compiled with
@@ -34,9 +37,9 @@ HEADERS = ("intersect.cuh",)
 COST_FORMS = ("trace_closest", "trace_any3", "trace_any", "trace_closest_perray",
               "trace_any_perray")
 
-# Kernel launches by kernel name; only the wrappers' CUDA launch sites add
-# to them (ops/trace.py, ops/volume.py, ops/traversal.py, tools/sweep_sol.py,
-# each through launch()).
+# Kernel launches by kernel name (the entry point's name without "wrt_"),
+# counted by launch(), the one call path of the wrappers' launch sites
+# (ops/trace.py, ops/volume.py, ops/traversal.py, tools/sweep_sol.py).
 launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
                           "trace_closest_perray", "trace_any_perray",
                           "trace_closest_attrs", "sweep_sol", "volume_march",
@@ -129,9 +132,11 @@ def build(ptxas_verbose: bool = False) -> tuple[Path, float, str]:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
+    """The loaded kernel library (built on first use; telemetry span
+    kernels.library: the sources' hash, the build or the load)."""
+    with telemetry.host_span("kernels.library"):
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.wrt_trace_closest.restype = i32
     lib.wrt_trace_closest.argtypes = [ptr, i64, ptr, ptr, ptr, i32, ptr, i32,
@@ -190,6 +195,9 @@ def library() -> ctypes.CDLL:
     lib.wrt_trace_stack_closest.argtypes = walk + [ptr, ptr, ptr, ptr, ptr]
     lib.wrt_trace_stack_any.restype = i32
     lib.wrt_trace_stack_any.argtypes = walk + [ptr, ptr, ptr]
+    # The recorder's device clock (utils/telemetry.py): out, the stream.
+    lib.wrt_clock_mark.restype = i32
+    lib.wrt_clock_mark.argtypes = [ptr, ptr]
     return lib
 
 
@@ -203,11 +211,22 @@ def launch(entry: str, device, *args) -> int:
     stream of `device`, with `device` the current device: the library's
     own CUDA runtime launches on the calling thread's current device,
     whatever device the stream belongs to. A tensor among args stands for
-    its data pointer, None for a null pointer. Returns the entry's CUDA
-    error code (0: launched)."""
+    its data pointer, None for a null pointer. A launch counts in
+    `launches` and, with the recorder on, is a device span, both under
+    the entry's name without "wrt_". Returns the entry's CUDA error code
+    (0: launched)."""
+    name = entry.removeprefix("wrt_")
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rec = telemetry.recorder
+    if rec is not None:
+        rec.push(name)
     with torch.cuda.device(device):
-        return getattr(library(), entry)(*args, stream_handle(device))
+        err = getattr(library(), entry)(*args, stream_handle(device))
+    if rec is not None:
+        rec.pop()
+    if err == 0:
+        launches[name] += 1
+    return err
 
 
 def check_operand(x: torch.Tensor, dtype, device) -> None:

@@ -95,8 +95,8 @@ the default forms are the code they were.
 Dispatch is by tensor device: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, which raises when it cannot be built or launched.
 `impl="plain"` forces the plain version on a CUDA tensor (used to compare
-the two). `launches` counts each kernel's launches by name, incremented
-only where the kernel is launched.
+the two). `launches` (ops/kernels.launch) counts each kernel's launches by
+name, only where the kernel is launched.
 
 The kernels build with -fmad=false so that every a*b+c rounds twice, as
 the plain version's separate tensor ops do; then integer outputs and t
@@ -109,7 +109,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .kernels import launches
+from .kernels import launches  # noqa: F401 (the count launch() keeps)
 from .wavefront import BIG, INF, cluster_entry_t, intersect_soa_t, scene_types
 
 # Rays per plain-version chunk: keeps the [chunk, 128] temporaries of the
@@ -426,7 +426,6 @@ def _closest_cuda(ops: TraceOperands, od, cp, clip_on, perray=False, with_cost=F
         outs.append(torch.empty(n, dtype=torch.int32, device=od.device))
     if n:
         _launch("wrt_" + name, ops, od, cp, clip_on, outs, group=perray)
-        launches[name] += 1
     return outs[0], outs[1], (outs[2] if with_cost else None)
 
 
@@ -452,7 +451,6 @@ def trace_closest_attrs(scene, o3, d3, t_min, clip=None, active=None, impl=None)
                 raise ValueError("the attrs kernel moves rows as 16-byte vectors")
             _launch("wrt_trace_closest_attrs", ops, od, cp, clip_on, (t, attrs),
                     tables=((ops.attr, torch.float32),))
-            launches["trace_closest_attrs"] += 1
         return t, attrs
     return closest_attrs_plain(ops, od, cp, clip_on)
 
@@ -567,7 +565,6 @@ def _any3_cuda(ops: TraceOperands, od, cp, clip_on, with_cost=False):
         outs.append(torch.empty(n, dtype=torch.int32, device=od.device))
     if n:
         _launch("wrt_" + name, ops, od, cp, clip_on, outs)
-        launches[name] += 1
     return outs[0], (outs[1] if with_cost else None)
 
 
@@ -706,7 +703,6 @@ def trace_any(scene, o3, d3, t_min, t_max=BIG, accept_min=None, clip=None,
             outs.append(torch.empty(n, dtype=torch.int32, device=od.device))
         if n:
             _launch("wrt_" + name, ops, od, cp, clip_on, outs, group=perray)
-            launches[name] += 1
         found, cost = outs[0] != 0, (outs[1] if with_cost else None)
     elif perray:
         _, _, found, cost = _perray_walk(ops, od, cp, clip_on, any_hit=True)

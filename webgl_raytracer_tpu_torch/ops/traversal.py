@@ -56,7 +56,6 @@ import torch
 from ..scene.bvh import DEFAULT_MAX_DEPTH, PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
 from .intersect import (clip_reject, intersect_aabb, intersect_cylinder, intersect_sphere,
                         intersect_triangle)
-from .kernels import launches
 from .trace import _f32, _use_kernel
 from .wavefront import BIG, HitRecord, scene_types
 
@@ -333,5 +332,4 @@ def _walk_cuda(tables, types, o3, d3, t_min, t_max, accept_min, clip, active, an
         err = launch("wrt_" + name, device, *args, *live, *outs)
         if err != 0:
             raise RuntimeError(f"wrt_{name} failed: CUDA error {err}")
-        launches[name] += 1
     return t, slot, extra, cost, found

@@ -42,7 +42,6 @@ import torch
 
 from . import vec3 as V
 from .intersect import intersect_aabb_range
-from .kernels import launches
 from .trace import _f32, _use_kernel
 
 MAX_STEPS = 1024            # render/config.static_flags caps volume_max_steps here
@@ -238,5 +237,4 @@ def _march_cuda(vol, origin, direction, t_surface, t_min, color, density_scale, 
         err = launch("wrt_volume_march", device, *args, out)
         if err != 0:
             raise RuntimeError(f"wrt_volume_march failed: CUDA error {err}")
-        launches["volume_march"] += 1
     return (out[0], out[1], out[2]), (out[3], out[4], out[5])

@@ -22,9 +22,12 @@ wall milliseconds (mean and each), the profiled frame's, its device busy
 time (sum of kernel times), the idle share against the profiled wall and
 against the timed frames' mean (an estimate: busy and wall time come from
 different frames of one run), the kernels executed in the frame, the
-trace kernels' time and launches, the top kernels by device time, and
-the peak device memory of the mode's frames (max_memory_allocated; for
-the graph also what its private pool keeps reserved after the capture).
+trace kernels' time and launches (the recorder's kernel spans,
+utils/telemetry.py: one a launch through ops/kernels.launch), the
+recorder's device ms by stage, the top kernels by device time, and the
+peak device memory of the mode's frames (max_memory_allocated; for the
+graph also what its private pool keeps reserved after the capture). The
+recorder is on in every frame of the tool.
 For the graph it also times TIMED_FRAMES frames in one render_frames
 call.
 
@@ -44,16 +47,14 @@ import json
 import os
 import time
 
+from .utils import telemetry
+
 WIDTH, HEIGHT = 1920, 1080
 PROTEIN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "assets", "proteins", "TSTP.pdb")
 TOP_KERNELS = 12
 TIMED_FRAMES = 5
 RACE_FRAMES = 20
-TRACE_KERNELS = ("trace_closest_kernel", "trace_any3_kernel", "trace_any3_raymajor_kernel",
-                 "trace_any_kernel", "trace_any_raymajor_kernel",
-                 "trace_closest_perray_kernel", "trace_any_perray_kernel",
-                 "trace_closest_attrs_kernel")
 TRANSPORTS = (("binned", {}), ("whole batch", {"WRT_CHUNKS": "1"}))
 MODES = ("eager", "graph")
 
@@ -78,7 +79,8 @@ class knobs_set:
 
 def eager_frame(r, state):
     """One frame of `r` run op by op: render_batch_stats (one host read
-    of the overflow flag), then the running mean into state["accum"]."""
+    of the overflow flag), then the running mean into state["accum"]; a
+    row of the recorder."""
     import torch
 
     from .render.frame import running_mean
@@ -86,11 +88,13 @@ def eager_frame(r, state):
 
     flags, u, px, py = state["inputs"]
     f = state["frame"]
-    color, _ = render_batch_stats(r.scene, flags, u, px, py, f, env=r.env)
-    if state.get("accum") is None:
-        state["accum"] = torch.empty_like(color)
-    running_mean(state["accum"], color, torch.full((), f, dtype=torch.int64,
-                                                   device=color.device))
+    rec = telemetry.recorder
+    with rec.call(None, 1), rec.eager_frame(r.device):
+        color, _ = render_batch_stats(r.scene, flags, u, px, py, f, env=r.env)
+        if state.get("accum") is None:
+            state["accum"] = torch.empty_like(color)
+        running_mean(state["accum"], color, torch.full((), f, dtype=torch.int64,
+                                                       device=color.device))
     state["frame"] = f + 1
 
 
@@ -99,6 +103,9 @@ def _profile(name, r, transport, mode) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from .ops.kernels import launches
+
+    rec = telemetry.enable()
     r.settings.tone_map = "linear"
     r.reset_accumulation()
     state = {"inputs": r.frame_inputs(), "frame": 0}
@@ -138,14 +145,9 @@ def _profile(name, r, transport, mode) -> dict:
             rows.append((e.key, e.self_device_time_total / 1000.0, e.count))
     rows.sort(key=lambda x: -x[1])
     busy_ms = sum(ms for _, ms, _ in rows)
-
-    def is_(t, key):
-        # Mangled ("...16trace_any_kernelEPKf...", "...16trace_any_kernelILb0E...") or
-        # demangled ("trace_any_kernel(", "trace_any_kernel<false>(").
-        return any(t + c in key for c in ("E", "I", "(", "<"))
-
-    traces = {t: [sum(ms for k, ms, _ in rows if is_(t, k)),
-                  sum(c for k, _, c in rows if is_(t, k))] for t in TRACE_KERNELS}
+    spans = rec.frames()[-1]["spans"]
+    telemetry.disable()
+    traces = {k: [ms, n] for k, (n, ms, _) in spans.items() if k in launches}
     out = {
         "scene": name, "transport": transport, "mode": mode,
         "device": torch.cuda.get_device_name(0),
@@ -157,6 +159,7 @@ def _profile(name, r, transport, mode) -> dict:
         "device_idle_share_unprofiled_est": max(0.0, 1.0 - busy_ms / plain_wall_ms),
         "trace_kernels_ms": sum(v[0] for v in traces.values()),
         "trace_kernels_ms_calls": traces,
+        "stage_ms": {k: ms for k, (_, ms, _) in spans.items() if k not in launches},
         "kernel_launches": sum(c for _, _, c in rows),
         "peak_memory_bytes": peak,
         "top": [{"kernel": k[:90], "ms": ms, "calls": c}

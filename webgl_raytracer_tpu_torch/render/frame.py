@@ -28,6 +28,14 @@ transport knobs (integrator.TRANSPORT_KNOBS); a change of any of them
 recaptures. The uniforms are one device buffer (config.uniforms_view)
 refreshed in place, so a camera move or a uniform setting needs none.
 
+With the recorder on (utils/telemetry.py) each render_frames call is a
+row of it: the host spans frame.setup, frame.launch, frame.wait,
+frame.redo and frame.capture, and the device spans of its frames, which
+_frame marks and a capture records into the graph (a capture key of its
+own), so that every replay times itself; they are read when the call
+returns, after the block's host read. While it is off none of it runs and
+the captured frame is the one without it.
+
 Visualisation modes (settings.vis_mode 1-3) render eagerly, one frame at
 a time with no capture, as the JAX package does: the view
 (integrator.render_visualization) replaces the accumulator, frame_index
@@ -52,6 +60,7 @@ shards may differ in size, so one path serves every size.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 
@@ -64,6 +73,7 @@ from ..ops.tonemap import apply_tonemap
 from ..parallel.mesh import replicate_scene, shard_rays
 from ..scene.camera import OrbitCamera
 from ..scene.compile import SceneBuffers, scene_bounds, scene_scale
+from ..utils import telemetry
 from .config import (UNIFORM_SIZE, RenderSettings, split_settings, static_flags,
                      uniform_values, uniforms_view)
 from .integrator import (TRANSPORT_KNOBS, render_batch_flagged, render_batch_stats,
@@ -104,6 +114,23 @@ def running_mean(accum, color, frame_index) -> None:
     torch.where(frame_index == 0, color, (accum * fi + color) / (fi + 1.0), out=accum)
 
 
+_NULL = contextlib.nullcontext()
+
+
+def _host(name: str):
+    """The recorder's host span `name` (utils/telemetry.py), or a no-op
+    while it is off."""
+    rec = telemetry.recorder
+    return _NULL if rec is None else rec.host(name)
+
+
+def _eager(device):
+    """The recorder's device spans of one eager frame on `device`, or a
+    no-op while it is off."""
+    rec = telemetry.recorder
+    return _NULL if rec is None else rec.eager_frame(device)
+
+
 @dataclass
 class _Captured:
     """A captured frame and what it was captured for."""
@@ -111,6 +138,7 @@ class _Captured:
     key: tuple
     held: tuple          # the scene, env and volume the key names by id, kept alive
     launches: dict       # kernel launches one replay makes, by name
+    plan: object = None  # its device spans, captured with the recorder on
 
 
 class Renderer:
@@ -322,16 +350,22 @@ class Renderer:
                                       device=self.device)
         return self._accum
 
-    def _frame(self, flags) -> None:
+    def _frame(self, flags):
         """One progressive frame into the accumulator at the device frame
         index, which it advances; the frame's overflow flag and ray counts
-        add to the block's totals. No host read on the kernels' path."""
+        add to the block's totals. No host read on the kernels' path.
+        Returns the frame's device spans with the recorder on (captured
+        with the frame where it is captured), else None."""
+        rec = telemetry.recorder
+        if rec is not None:
+            rec.begin_frame(self.device)
         color, rays, overflow = render_batch_flagged(
             self.scene, flags, self._u, self._px, self._py, self._fi, env=self.env,
             impl=self.impl, vol=self.volume)
         running_mean(self._accum, color, self._fi)
         self._totals.add_(torch.stack([overflow, rays[0], rays[1]]))
         self._fi.add_(1)
+        return None if rec is None else rec.end_frame()
 
     def _release_graph(self) -> None:
         if self._graph is not None:
@@ -339,6 +373,13 @@ class Renderer:
             self._graph = None
         for shard in self._shards or ():
             shard._release_graph()
+
+    def _capture_key(self, flags) -> tuple:
+        """What a captured frame bakes in; with the recorder on, also its
+        device spans."""
+        key = (flags, self.width, self.height, id(self.scene), id(self.env),
+               id(self.volume), self.impl, tuple(os.environ.get(k) for k in TRANSPORT_KNOBS))
+        return key if telemetry.recorder is None else key + ("telemetry",)
 
     def _captured(self, flags) -> _Captured:
         """The captured frame for these flags and the current scene, env,
@@ -349,12 +390,11 @@ class Renderer:
         own capture stream; the launch counters keep the warm-up's launches
         and learn the replay's. All of it runs with the Renderer's device
         current, whatever device the caller's is."""
-        key = (flags, self.width, self.height, id(self.scene), id(self.env),
-               id(self.volume), self.impl, tuple(os.environ.get(k) for k in TRANSPORT_KNOBS))
+        key = self._capture_key(flags)
         if self._graph is not None and self._graph.key == key:
             return self._graph
         self._release_graph()
-        with torch.cuda.device(self.device):
+        with _host("frame.capture"), torch.cuda.device(self.device):
             saved = self._accum.clone()
             self._fi.fill_(self.frame_index)
             main = torch.cuda.current_stream(self.device)
@@ -369,32 +409,43 @@ class Renderer:
             graph = torch.cuda.CUDAGraph()
             before = dict(launches)
             with torch.cuda.graph(graph, stream=self._capture_stream):
-                self._frame(flags)
+                plan = self._frame(flags)
         per_replay = {name: launches[name] - n for name, n in before.items()}
         launches.update(before)
         self.stats["captures"] += 1
-        self._graph = _Captured(graph, key, (self.scene, self.env, self.volume), per_replay)
+        self._graph = _Captured(graph, key, (self.scene, self.env, self.volume), per_replay,
+                                plan)
         return self._graph
 
     def render_frames(self, count: int) -> bool:
         """Trace `count` progressive frames: on the card, `count` replays of
         the captured frame and one host read of the block's totals.
-        Returns False when max_frames was already reached."""
+        Returns False when max_frames was already reached. With the
+        recorder on (utils/telemetry.py) the call is one row of it."""
         s = self.settings
         if s.max_frames > 0:
             count = min(count, max(0, s.max_frames - self.frame_index))
         if count <= 0:
             return False
+        rec = telemetry.recorder
+        if rec is None:
+            self._render_block(count)
+        else:
+            with rec.call(self, count):
+                self._render_block(count)
+        return True
+
+    def _render_block(self, count: int) -> None:
         if self.mesh is not None:
             self._render_mesh(count)
-            return True
-        flags = self._frame_setup()
+            return
+        with _host("frame.setup"):
+            flags = self._frame_setup()
         if flags.vis_mode > 0:
             for _ in range(count):
                 self._vis_frame(flags)
-            return True
+            return
         self._finish_block(flags, self._start_block(flags, count, self._block_graph(flags)))
-        return True
 
     def _block_graph(self, flags):
         """The captured frame a block replays (_captured), or None where
@@ -407,20 +458,26 @@ class Renderer:
         """Issue `count` frames from frame_index: replays of `captured`, or
         eager frames where it is None. No host read on the card. Returns
         the block (start, count, accumulator at the start) for
-        _finish_block."""
-        start = self.frame_index
-        saved = self._accum.clone() if start > 0 else None
-        self._fi.fill_(start)
-        self._totals.zero_()
-        if captured is None:
-            for _ in range(count):
-                self._frame(flags)
-        else:
-            with torch.cuda.device(self.device):
-                for _ in range(count):
-                    captured.graph.replay()
-            for name, n in captured.launches.items():
-                launches[name] += n * count
+        _finish_block. Its frames' device spans are read when the call
+        returns (recorder on)."""
+        rec = telemetry.recorder
+        with _host("frame.launch"):
+            start = self.frame_index
+            saved = self._accum.clone() if start > 0 else None
+            self._fi.fill_(start)
+            self._totals.zero_()
+            if captured is None:
+                plans = [self._frame(flags) for _ in range(count)]
+            else:
+                with torch.cuda.device(self.device):
+                    for _ in range(count):
+                        captured.graph.replay()
+                for name, n in captured.launches.items():
+                    launches[name] += n * count
+                plans = [captured.plan]
+        if rec is not None:
+            for plan in plans:
+                rec.timed(plan)
         return start, count, saved
 
     def _finish_block(self, flags, block) -> tuple:
@@ -428,9 +485,11 @@ class Renderer:
         its binned buffer overflowed, and advance frame_index and
         ray_counts. Returns the block's (path, occlusion) rays."""
         start, count, saved = block
-        overflowed, paths, occl = self._totals.tolist()
+        with _host("frame.wait"):
+            overflowed, paths, occl = self._totals.tolist()
         if overflowed:
-            paths, occl = self._redo(flags, start, count, saved)
+            with _host("frame.redo"):
+                paths, occl = self._redo(flags, start, count, saved)
         self.frame_index = start + count
         self.ray_counts = (self.ray_counts[0] + paths, self.ray_counts[1] + occl)
         return paths, occl
@@ -471,10 +530,11 @@ class Renderer:
         """One visualisation frame: the view written over the accumulator
         in place (a held capture reads that tensor), frame_index 1."""
         self._release_graph()
-        color = render_visualization(self.scene, flags, self._u, self._px, self._py,
-                                     self.frame_index, env=self.env, impl=self.impl,
-                                     vol=self.volume)
-        self._accum.copy_(color)
+        with _eager(self.device):
+            color = render_visualization(self.scene, flags, self._u, self._px, self._py,
+                                         self.frame_index, env=self.env, impl=self.impl,
+                                         vol=self.volume)
+            self._accum.copy_(color)
         self.frame_index = 1
 
     def _redo(self, flags, start, count, saved):
@@ -487,10 +547,11 @@ class Renderer:
         paths = occl = 0
         for f in range(start, start + count):
             self._fi.fill_(f)
-            color, (p, o) = render_batch_stats(self.scene, flags, self._u, self._px,
-                                               self._py, f, env=self.env, impl=self.impl,
-                                               vol=self.volume)
-            running_mean(self._accum, color, self._fi)
+            with _eager(self.device):
+                color, (p, o) = render_batch_stats(self.scene, flags, self._u, self._px,
+                                                   self._py, f, env=self.env,
+                                                   impl=self.impl, vol=self.volume)
+                running_mean(self._accum, color, self._fi)
             paths, occl = paths + int(p), occl + int(o)
         self.stats["overflowed_blocks"] += 1
         self.stats["redone_frames"] += count

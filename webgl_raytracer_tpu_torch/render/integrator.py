@@ -87,12 +87,32 @@ from ..ops.volume import march_volume
 from ..ops.wavefront import (HitRecord, _finalize_hit, wf_trace_any3_v3,
                              wf_trace_any_v3, wf_trace_closest_v3)
 from ..scene.bvh import PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE
+from ..utils import telemetry
 from . import compact as CP
 
 BIG = float(np.float32(1e20))
 RADIANCE_CLAMP = 100.0
 NEE_CLAMP = 20.0
 THROUGHPUT_CLAMP = 10.0
+
+
+def _no_stage(name, level):
+    pass
+
+
+def _no_end(level):
+    pass
+
+
+def _marks():
+    """The recorder's (stage, end, stage_next) marks of the frame's device
+    spans (utils/telemetry.py), or no-ops while it is off. Level 1 is a
+    stage of the frame (frame.head, bounce[b], frame.tail), level 2 one of
+    its parts; a bounce opens at its first part's mark (stage_next)."""
+    rec = telemetry.recorder
+    if rec is None:
+        return _no_stage, _no_end, _no_stage
+    return rec.stage, rec.end, rec.stage_next
 
 
 def _clip_tuple(flags, u):
@@ -296,6 +316,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
     bias = torch.clamp_min(u.ray_bias, 1e-4)
     clip = _clip_tuple(flags, u)
     ambient = V.splat(u.ambient_color)
+    stage = _marks()[0]
 
     def bounce_body(bounce: int, st: PathState, rec=None, attrs=None,
                     use_attrs=False) -> PathState:
@@ -305,6 +326,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
         use_attrs."""
         st.nrays = st.nrays + st.alive.sum()
         if rec is None:
+            stage("extend", 2)
             # secondary: bounce rays take the per-ray routing on
             # cluster-rich scenes (the JAX package's _trace_or_skip).
             rec = _closest_hit(scene, flags, st.origin, st.direction, u.t_min, clip,
@@ -316,6 +338,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
 
         # --- volume march up to the closest hit ---
         if flags.volume_enabled:
+            stage("volume", 2)
             vol_rad, st.throughput = march_volume(
                 vol, st.origin, st.direction, torch.where(hit, rec.t, BIG), u.t_min,
                 u.volume_color, u.volume_density, u.volume_opacity, u.volume_step,
@@ -325,6 +348,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
                 st.radiance[c].add_(vol_rad[c])
 
         # --- environment / ambient on miss, MIS against BRDF sampling ---
+        stage("env.miss", 2)
         env_contrib = V.scale(ambient, u.ambient_intensity)
         mis_w = 1.0
         if flags.use_env:
@@ -344,6 +368,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
         return shade_tail(bounce, rec, attrs, st)
 
     def shade_tail(bounce: int, rec: HitRecord, attrs, st: PathState) -> PathState:
+        stage("shade", 2)
         seed = st.seed
         origin, direction = st.origin, st.direction
         throughput, radiance = st.throughput, st.radiance
@@ -466,6 +491,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
 
         # --- env NEE with MIS ---
         if flags.use_env:
+            stage("env.nee", 2)
             seed, env_dir, env_spdf = sample_env_direction_v3(env, seed)
             ndl_e = V.dot(sn, env_dir)
             candidate = shade_lane & (ndl_e > 0.0)
@@ -493,6 +519,7 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
                 radiance[c].add_(torch.where(open_sky, contrib[c], 0.0))
 
         # --- BRDF sampling ---
+        stage("sample", 2)
         spec_w = V.max_component(f0)
         diff_w = (1.0 - metallic) * V.max_component(base_color)
         wsum = spec_w + diff_w
@@ -625,12 +652,15 @@ def trace_paths(scene, flags, u, origin0, dir0, seed0, env=None, impl=None,
                  else _use_attrs(scene, flags))
     bounce_body = _make_bounce_step(scene, env, flags, u, n, impl=impl, vol=vol)
     st = _initial_state(seed0, origin0, dir0, origin0[0].device)
+    _, end, stage_next = _marks()
     for bounce in range(flags.max_bounces):
+        stage_next(f"bounce[{bounce}]", 1)
         if bounce == 0:
             st = bounce_body(0, st, rec=first_rec, attrs=first_attrs,
                              use_attrs=use_attrs)
         else:
             st = bounce_body(bounce, st, use_attrs=use_attrs)
+    end(1)
     radiance = V.min_with(st.radiance, RADIANCE_CLAMP)
     return radiance, st.seed, (st.nrays, st.noccl)
 
@@ -786,6 +816,8 @@ def _run_permuted(scene, env, flags, u, seed, origin, direction, rec0, attrs0,
                                             vol=vol)
         colors.append(V.to_array(radiance))
         nrays, noccl = nrays + nr, noccl + no
+    stage = _marks()[0]
+    stage("frame.tail", 1)
     colors = torch.cat(colors)
     if g > 1:
         colors = colors.reshape(n // g, g, 3)[inv].reshape(n, 3)
@@ -825,7 +857,10 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
     its row, radiance and the row's bounce-0 slot (`home`) included. At
     the end one inverse move by home and one expand return the radiance to
     pixel order, where the primary misses' environment radiance is added.
-    WRT_BIN_CAP_DIV sets div (default 12).
+    WRT_BIN_CAP_DIV sets div (default 12). With the recorder on, each
+    bounce's live lanes (the live count the bounce starts from) add to the
+    frame's lanes counter (utils/telemetry.py) beside the cap lanes it
+    runs.
 
     Returns (radiance triple, (path rays, occlusion rays), overflow): a
     0-d int64 tensor, 1 where the frame has more primary hits than cap.
@@ -837,9 +872,12 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
     hit = rec0.prim_slot >= 0
     n_live = hit.sum()
     cap = CP.compact_cap(n, int(os.environ.get("WRT_BIN_CAP_DIV") or 12))
+    recorder = telemetry.recorder
+    stage, end, stage_next = _marks()
 
     # The primary misses' radiance, in pixel order (bounce 0 of trace_paths
     # for a lane that misses).
+    stage("env.miss", 2)
     env_contrib = V.scale(V.splat(u.ambient_color), u.ambient_intensity)
     if flags.use_env:
         env_contrib = V.add(env_contrib, sample_env_radiance_v3(
@@ -849,6 +887,7 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
                           RADIANCE_CLAMP)
 
     # Scene box of the spatial key.
+    stage("pack", 2)
     lo = scene.cluster_bmin.min(dim=0).values
     hi = scene.cluster_bmax.max(dim=0).values
     inv_extent = 1.0 / torch.clamp_min(hi - lo, 1e-6)
@@ -863,14 +902,20 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
     lanes = torch.arange(cap, device=device)
     st.alive = lanes < n_live
     home = lanes
+    end(2)
     rec_k = _finalize_hit(scene, st.origin, st.direction, u.t_min.expand(cap), clip,
                           cols[7], torch.where(st.alive, CP.int_col(rows, 8), -1),
                           cost=None, refine_sphere_t=True)
 
     bounce_body = _make_bounce_step(scene, env, flags, u, cap, impl=impl)
+    live = n_live
     for b in range(flags.max_bounces):
+        stage_next(f"bounce[{b}]", 1)
+        if recorder is not None:
+            recorder.lanes(b, live, cap, flags.max_bounces)
         st = bounce_body(b, st, rec=rec_k if b == 0 else None)
         if b < flags.max_bounces - 1:
+            stage("repack", 2)
             key = CP.bin_key(st.origin, st.direction, lo, inv_extent)
             order = torch.argsort(torch.where(st.alive, key, CP.DEAD_KEY), stable=True)
             rows = CP.gather_rows(CP.pack_rows(
@@ -886,7 +931,9 @@ def _binned_transport(scene, env, flags, u, seed, origin, direction, rec0, clip,
                            radiance=(cols[11], cols[12], cols[13]),
                            alive=lanes < m, nrays=st.nrays, noccl=st.noccl)
             home = CP.int_col(rows, 14)
+            live = m
 
+    stage("frame.tail", 1)
     back = torch.argsort(home, stable=True)
     rad_c = V.min_with(tuple(r[back] for r in st.radiance), RADIANCE_CLAMP)
     radiance = V.add(miss_rad, CP.expand_cols(rad_c, hit))
@@ -900,10 +947,18 @@ def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=Non
     JAX package's _sample_radiance picks: the whole batch for one chunk;
     else a full-width primary trace, then the permuted transport with
     attrs rows (_use_attrs), the binned transport (_use_binned, unless
-    binned=False) or the permuted transport.
+    binned=False) or the permuted transport. With the recorder on, each
+    transport marks its device spans: frame.head (camera rays and, but
+    for the whole batch, the primary trace; the binned transport's
+    env.miss of the primary misses, its pack and _finalize_hit), a
+    bounce[b] per bounce (and chunk) with its parts (extend, volume,
+    env.miss, shade with the shadow fan's kernel, env.nee, sample, repack),
+    frame.tail.
     Returns (radiance triple, (path rays, occlusion rays), overflow): a 0-d
     int64 tensor, 1 where the binned buffer overflowed (the sample must be
     redone with binned=False), else 0."""
+    stage = _marks()[0]
+    stage("frame.head", 1)
     seed, origin, direction = generate_camera_rays(u, flags, px, py, frame_index, s)
     n = px.shape[0]
     no_overflow = torch.zeros((), dtype=torch.int64, device=px.device)
@@ -911,6 +966,7 @@ def _sample_radiance(scene, flags, u, px, py, frame_index, s, env=None, impl=Non
     if chunks == 1:
         radiance, _, rays = trace_paths(scene, flags, u, origin, direction, seed,
                                         env=env, impl=impl, vol=vol)
+        stage("frame.tail", 1)
         return radiance, rays, no_overflow
     clip = _clip_tuple(flags, u)
     attrs0 = None

@@ -42,6 +42,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import Geometry
+from ..utils import telemetry
 from .bvh import DEFAULT_MAX_DEPTH, PRIM_CYLINDER, PRIM_SPHERE, PRIM_TRIANGLE, build_bvh
 
 # Tensor fields of SceneBuffers (the rest are python ints).
@@ -185,6 +186,7 @@ def scene_from_numpy(fields_: dict, device=None) -> SceneBuffers:
     return _scene(fields_, device, lambda: tables)
 
 
+@telemetry.spanned("scene.upload")
 def _scene(fields_: dict, device, pick_source) -> SceneBuffers:
     device = resolve_device(device)
     tensors = {name: torch.tensor(np.asarray(fields_[name], np.float32),
@@ -201,6 +203,7 @@ def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return np.pad(a, pad)
 
 
+@telemetry.spanned("scene.compile")
 def compile_scene(geometry: Geometry | None = None, tri_verts=None,
                   tri_normals=None, tri_colors=None, tri_flags=None,
                   cluster_size: int = 128, device=None) -> SceneBuffers:
@@ -350,6 +353,12 @@ def _pack_type_clusters(bvh, c, ptype_code, fill):
     return prims, colors, bvh.node_bmin[leaf_mask], bvh.node_bmax[leaf_mask]
 
 
+def _host_bvh(**kwargs):
+    with telemetry.host_span("scene.bvh"):
+        return build_bvh(**kwargs)
+
+
+@telemetry.spanned("scene.clusters")
 def _build_clusters(geometry, tv, tc, cluster_size, nt, ns):
     """Type-homogeneous clusters: (prims f32[K,C,12], colors f32[K*C,3],
     bmin f32[K,3], bmax f32[K,3]). Triangles first, then spheres, then
@@ -365,7 +374,7 @@ def _build_clusters(geometry, tv, tc, cluster_size, nt, ns):
             colors[k_idx, slot_idx] = tc[local]
 
         parts.append(_pack_type_clusters(
-            build_bvh(tri_verts=tv, max_leaf_size=c, max_depth=48),
+            _host_bvh(tri_verts=tv, max_leaf_size=c, max_depth=48),
             c, PRIM_TRIANGLE, fill_tri))
     if ns:
         def fill_sph(prims, k_idx, slot_idx, local, colors):
@@ -374,7 +383,7 @@ def _build_clusters(geometry, tv, tc, cluster_size, nt, ns):
             colors[k_idx, slot_idx] = geometry.sphere_colors[local]
 
         parts.append(_pack_type_clusters(
-            build_bvh(sphere_centers=geometry.sphere_centers,
+            _host_bvh(sphere_centers=geometry.sphere_centers,
                       sphere_radii=geometry.sphere_radii,
                       max_leaf_size=c, max_depth=48),
             c, PRIM_SPHERE, fill_sph))
@@ -386,7 +395,7 @@ def _build_clusters(geometry, tv, tc, cluster_size, nt, ns):
             colors[k_idx, slot_idx] = geometry.cyl_colors[local]
 
         parts.append(_pack_type_clusters(
-            build_bvh(cyl_p1=geometry.cyl_p1, cyl_p2=geometry.cyl_p2,
+            _host_bvh(cyl_p1=geometry.cyl_p1, cyl_p2=geometry.cyl_p2,
                       cyl_radii=geometry.cyl_radii,
                       max_leaf_size=c, max_depth=48),
             c, PRIM_CYLINDER, fill_cyl))
