@@ -1183,3 +1183,263 @@ def test_kernels_and_captured_frames_run_on_their_tensors_card(device, second_ca
     calls on cuda:1 equal those on cuda:0 bit for bit."""
     on_first, on_second = _card_results(device), _card_results(second_card)
     assert on_first == on_second
+
+
+# The bounce step's shading kernels (ops/shade.py, csrc/shade.cu) against
+# the plain step (impl="plain"): bit for bit on the radiance of every lane
+# and on the whole state of each lane live on entry, with the same ray
+# counts.
+
+SHADE_MODES = ("metallic", "matte", "surface-glass", "translucent-plastic")
+SHADE_SCENES = ("spheres1000", "caffeine+tris")
+
+
+def _shade_scene(name, device):
+    if name == "spheres1000":
+        return compile_scene(random_sphere_geometry(1000), device=device)
+    # Caffeine's spheres and cylinders and two triangles, the first flagged.
+    return compile_scene(molecule_geometry("caffeine"), tri_verts=TRIS,
+                         tri_flags=np.array([1.0, 0.0], np.float32), device=device)
+
+
+def _shade_renderer(scene, device, mode="metallic", sky=None, size=(128, 96)):
+    from webgl_raytracer_tpu_torch.render.config import apply_material_preset
+
+    r = Renderer(scene, env=sky, width=size[0], height=size[1], device=device)
+    r.settings.env_intensity = 0.4
+    r.settings.ambient_intensity = 0.2
+    r.settings.material_mode = mode
+    if mode == "metallic":
+        r.settings.metallic = 0.3
+    if mode == "surface-glass":
+        r.settings.surface_flag_mode = 1
+        r.settings.surface_opacity = 0.3
+    if mode == "translucent-plastic":
+        apply_material_preset(r.settings, mode)
+    return r
+
+
+@pytest.fixture(scope="module")
+def small_sky(device):
+    return EnvironmentController(device=device).load_analytic_sky(width=128, height=64)
+
+
+def _clone_state(st):
+    from webgl_raytracer_tpu_torch.render.integrator import PathState
+
+    def c(x):
+        return tuple(v.clone() for v in x)
+
+    return PathState(seed=st.seed.clone(), origin=c(st.origin), direction=c(st.direction),
+                     throughput=c(st.throughput), radiance=c(st.radiance),
+                     last_pdf=st.last_pdf.clone(), alive=st.alive.clone(),
+                     nrays=st.nrays.clone(), noccl=st.noccl.clone())
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _same_step(fused, plain, entry):
+    """The fused step's state against the plain step's: radiance on every
+    lane, the rest on the lanes live on entry (a lane dead on entry keeps
+    no state but alive False), alive and the ray counts everywhere."""
+    live = entry.alive
+    assert torch.equal(_bits(torch.stack(fused.radiance)), _bits(torch.stack(plain.radiance)))
+    for a, b in ((fused.origin, plain.origin), (fused.direction, plain.direction),
+                 (fused.throughput, plain.throughput), ((fused.last_pdf,), (plain.last_pdf,))):
+        assert torch.equal(_bits(torch.stack(a))[:, live], _bits(torch.stack(b))[:, live])
+    assert torch.equal(fused.seed[live], plain.seed[live])
+    assert torch.equal(fused.alive, plain.alive)
+    assert int(fused.nrays) == int(plain.nrays) and int(fused.noccl) == int(plain.noccl)
+
+
+def _step_by_step(r, frame=5):
+    """Every bounce of r's whole-batch frame through the fused and the
+    plain step from the plain step's state; returns the live lanes on
+    entry of each bounce after checking each bounce launched the two
+    kernels once."""
+    from webgl_raytracer_tpu_torch.render import integrator as PI
+
+    flags, u, px, py = r.frame_inputs()
+    seed, o3, d3 = generate_camera_rays(u, flags, px, py, frame, 0)
+    n = px.shape[0]
+    st = PI._initial_state(seed, o3, d3, px.device)
+    fused = PI._make_bounce_step(r.scene, r.env, flags, u, n)
+    plain = PI._make_bounce_step(r.scene, r.env, flags, u, n, impl="plain")
+    assert fused.__name__ == "fused_body" and plain.__name__ == "bounce_body"
+    live = []
+    for b in range(flags.max_bounces):
+        before = dict(T.launches)
+        out = fused(b, _clone_state(st))
+        assert T.launches["shade_surface"] == before["shade_surface"] + 1
+        assert T.launches["shade_scatter"] == before["shade_scatter"] + 1
+        want = plain(b, _clone_state(st))
+        _same_step(out, want, st)
+        live.append(int(st.alive.sum()))
+        st = want
+    return live
+
+
+@pytest.mark.parametrize("sky", [False, True], ids=["ambient", "sky"])
+@pytest.mark.parametrize("mode", SHADE_MODES)
+@pytest.mark.parametrize("name", SHADE_SCENES)
+def test_fused_bounce_step_matches_plain(device, small_sky, name, mode, sky):
+    """Material modes 0-3, ambient and under the sky, bounces 0-3, on the
+    spheres and on spheres, cylinders and (flagged) triangles."""
+    r = _shade_renderer(_shade_scene(name, device), device, mode,
+                        sky=small_sky if sky else None)
+    live = _step_by_step(r)
+    assert live[0] == 128 * 96 and live[1] > 0
+
+
+SHADE_VARIANTS = {
+    "rim off": lambda s: setattr(s, "rim_boost", 0.0),
+    "light 1 disabled": lambda s: setattr(s.lights[1], "enabled", False),
+    "no light": lambda s: [setattr(lt, "enabled", False) for lt in s.lights],
+    "no shadows": lambda s: setattr(s, "cast_shadows", False),
+    "uniform colour": lambda s: setattr(s, "use_imported_color", False),
+    "stack tracer": lambda s: setattr(s, "tracer", "stack"),
+    "brute sweep": lambda s: setattr(s, "use_bvh", False),
+}
+
+
+@pytest.mark.parametrize("variant", list(SHADE_VARIANTS))
+def test_fused_bounce_step_variants_match_plain(device, small_sky, variant):
+    r = _shade_renderer(_shade_scene("caffeine+tris", device), device, sky=small_sky)
+    SHADE_VARIANTS[variant](r.settings)
+    _step_by_step(r)
+
+
+@pytest.mark.parametrize("sky", [False, True], ids=["ambient", "sky"])
+def test_fused_bounce_step_on_a_dead_batch(device, small_sky, sky):
+    """A batch with no live lane: the radiance keeps its bits, no lane
+    lives, the counts do not move, and both kernels still launch once."""
+    from webgl_raytracer_tpu_torch.render import integrator as PI
+
+    r = _shade_renderer(_shade_scene("spheres1000", device), device,
+                        sky=small_sky if sky else None)
+    flags, u, px, py = r.frame_inputs()
+    seed, o3, d3 = generate_camera_rays(u, flags, px, py, 0, 0)
+    n = px.shape[0]
+    st = PI._initial_state(seed, o3, d3, device)
+    rad = torch.rand((3, n), device=device)
+    st.radiance = tuple(x.clone() for x in rad)
+    st.alive = torch.zeros(n, dtype=torch.bool, device=device)
+    step = PI._make_bounce_step(r.scene, r.env, flags, u, n)
+    for b in (0, 2):
+        before = dict(T.launches)
+        st = step(b, st)
+        assert T.launches["shade_surface"] - before["shade_surface"] == 1
+        assert T.launches["shade_scatter"] - before["shade_scatter"] == 1
+    assert torch.equal(torch.stack(st.radiance), rad)
+    assert not bool(st.alive.any()) and int(st.nrays) == 0 and int(st.noccl) == 0
+
+
+def _tstp_scene(device):
+    from webgl_raytracer_tpu_torch.app.pipeline import load_molecule_scene
+    from webgl_raytracer_tpu_torch.models import parse_auto_detect
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "assets", "proteins", "TSTP.pdb")
+    with open(path, encoding="utf-8") as f:
+        mol = parse_auto_detect(f.read(), "TSTP.pdb")
+    return load_molecule_scene(mol, display_style="cartoon", device=device).scene
+
+
+# (scene, sky, knobs, frames launched per frame: bounces x chunks).
+SHADE_TRANSPORTS = {
+    "whole batch": ("spheres1000", True, {"WRT_CHUNKS": "1"}, 4),
+    "binned": ("spheres1000", True, {"WRT_CHUNKS": "4"}, 4),
+    "binned ambient": ("caffeine+tris", False, {"WRT_CHUNKS": "4", "WRT_BIN_CAP_DIV": "2"},
+                       4),
+    "permuted": ("caffeine+tris", True, {"WRT_CHUNKS": "4", "WRT_BINNED": "0"}, 16),
+    "tstp attrs rows": ("tstp", True, {"WRT_CHUNKS": "4", "WRT_ATTRS": "1"}, 16),
+    "stack": ("caffeine+tris", True, {"WRT_CHUNKS": "1"}, 4),
+}
+
+
+@pytest.mark.parametrize("transport", list(SHADE_TRANSPORTS))
+def test_fused_frames_match_plain_on_every_transport(device, small_sky, transport,
+                                                     monkeypatch):
+    """Two captured frames through the kernels equal the plain step's
+    frames bit for bit, ray counts included, and each bounce of each
+    chunk launches both kernels once."""
+    name, sky, knobs, per_frame = SHADE_TRANSPORTS[transport]
+    _set_knobs(monkeypatch, knobs)
+    scene = _tstp_scene(device) if name == "tstp" else _shade_scene(name, device)
+    out = []
+    for impl in (None, "plain"):
+        r = Renderer(scene, env=small_sky if sky else None, width=256, height=256,
+                     device=device, impl=impl)
+        r.settings.env_intensity = 0.4
+        if transport == "stack":
+            r.settings.tracer = "stack"
+        before = dict(T.launches)
+        r.render_frames(2)
+        got = {k: T.launches[k] - before[k] for k in ("shade_surface", "shade_scatter")}
+        out.append((r._accum, r.ray_counts, got))
+        assert r.stats["redone_frames"] == 0
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+    # The capture's warm-up frame and two replays.
+    assert out[0][2] == {"shade_surface": 3 * per_frame, "shade_scatter": 3 * per_frame}
+    assert out[1][2] == {"shade_surface": 0, "shade_scatter": 0}
+    assert float(out[0][0].mean()) > 0.0
+
+
+def test_fused_volume_frame_matches_plain(device, monkeypatch):
+    """A volume frame (permuted, the march before the shading) through the
+    kernels equals the plain step's frame."""
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "4"})
+    images = []
+    for impl in (None, "plain"):
+        r, _ = _volume_renderer(device)
+        r.impl = impl
+        r.render_frames(2)
+        images.append((r._accum, r.ray_counts))
+    assert torch.equal(images[0][0], images[1][0]) and images[0][1] == images[1][1]
+
+
+def test_captured_1080p_sky_frame_equals_eager(device, monkeypatch):
+    """The benchmark's frame: 1080p, 1000 spheres under the sky, binned at
+    n/16 lanes; two replays equal three eager frames bit for bit."""
+    _set_knobs(monkeypatch, {"WRT_BIN_CAP_DIV": "16"})
+    scene = compile_scene(random_sphere_geometry(1000), device=device)
+    sky = EnvironmentController(device=device).load_analytic_sky(width=1024, height=512)
+    r = Renderer(scene, env=sky, width=1920, height=1080, device=device)
+    r.render_frames(1)
+    r.render_frames(2)
+    acc, paths, occl = _eager_frames(r, 3)
+    assert torch.equal(r._accum, acc) and r.ray_counts == (paths, occl)
+    assert r.stats["captures"] == 1
+
+
+@pytest.mark.parametrize("sky", [False, True], ids=["ambient", "sky"])
+def test_fused_recorder_layout(device, small_sky, sky, monkeypatch):
+    """With the recorder on, a binned bounce's parts are extend (from
+    bounce 1), shade (shade_surface and the fan), env.nee (under the sky),
+    sample (shade_scatter) and repack (but the last); each kernel is a
+    span of its own."""
+    from webgl_raytracer_tpu_torch.utils import telemetry
+
+    _set_knobs(monkeypatch, {"WRT_CHUNKS": "4"})
+    r = Renderer(_shade_scene("spheres1000", device), env=small_sky if sky else None,
+                 width=256, height=256, device=device)
+    telemetry.enable()
+    try:
+        flags = r._frame_setup()
+        plan = r._frame(flags)
+        torch.cuda.synchronize()
+        layout = plan.layout
+    finally:
+        telemetry.disable()
+    names = [s[0] for s in layout]
+    for b in range(4):
+        i = names.index(f"bounce[{b}]")
+        parts = [s[0] for s in layout if s[1] == i]
+        assert parts == (["extend"] if b else []) + ["shade"] + (
+            ["env.nee"] if sky else []) + ["sample"] + (["repack"] if b < 3 else [])
+        shade = names.index("shade", i)
+        sample = names.index("sample", i)
+        assert "shade_surface" in [s[0] for s in layout if s[1] == shade]
+        assert [s[0] for s in layout if s[1] == sample] == ["shade_scatter"]

@@ -29,8 +29,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("trace_closest.cu", "trace_any3.cu", "trace_any.cu",
            "trace_closest_perray.cu", "trace_any_perray.cu",
            "trace_closest_attrs.cu", "sweep_sol.cu", "volume_march.cu", "trace_stack.cu",
-           "telemetry.cu")
-HEADERS = ("intersect.cuh",)
+           "telemetry.cu", "shade.cu")
+HEADERS = ("intersect.cuh", "shade.cuh")
 
 # The trace kernels that have a cost form: the same source compiled with
 # its counter (ops/trace.py, "Counts"), launched as "<name>_cost".
@@ -39,11 +39,13 @@ COST_FORMS = ("trace_closest", "trace_any3", "trace_any", "trace_closest_perray"
 
 # Kernel launches by kernel name (the entry point's name without "wrt_"),
 # counted by launch(), the one call path of the wrappers' launch sites
-# (ops/trace.py, ops/volume.py, ops/traversal.py, tools/sweep_sol.py).
+# (ops/trace.py, ops/volume.py, ops/traversal.py, ops/shade.py,
+# tools/sweep_sol.py).
 launches = dict.fromkeys(("trace_closest", "trace_any3", "trace_any",
                           "trace_closest_perray", "trace_any_perray",
                           "trace_closest_attrs", "sweep_sol", "volume_march",
-                          "trace_stack_closest", "trace_stack_any")
+                          "trace_stack_closest", "trace_stack_any", "shade_surface",
+                          "shade_scatter")
                          + tuple(f"{name}_cost" for name in COST_FORMS), 0)
 
 # -fmad=false keeps every a*b+c rounded twice, as the plain PyTorch
@@ -195,6 +197,17 @@ def library() -> ctypes.CDLL:
     lib.wrt_trace_stack_closest.argtypes = walk + [ptr, ptr, ptr, ptr, ptr]
     lib.wrt_trace_stack_any.restype = i32
     lib.wrt_trace_stack_any.argtypes = walk + [ptr, ptr, ptr]
+    # The bounce step's shading (ops/shade.py surface_args, scatter_args):
+    # counts and configuration, the state (rows as (pointer, step)), the
+    # hit record, the rows, the environment, params, the outputs, the
+    # stream.
+    lib.wrt_shade_surface.restype = i32
+    lib.wrt_shade_surface.argtypes = ([i64, i32, i32, i32, ptr] + [ptr, i32] * 10
+                                      + [ptr] * 9 + [ptr, ptr, ptr, i32] + [ptr, i32] * 3
+                                      + [i32] + [ptr] * 3 + [i32] * 4 + [ptr] * 7)
+    lib.wrt_shade_scatter.restype = i32
+    lib.wrt_shade_scatter.argtypes = ([i64, i32, i32, i32] + [ptr] * 9 + [ptr] * 3
+                                      + [i32] * 4 + [ptr] * 5)
     # The recorder's device clock (utils/telemetry.py): out, the stream.
     lib.wrt_clock_mark.restype = i32
     lib.wrt_clock_mark.argtypes = [ptr, ptr]

@@ -13,7 +13,10 @@ of traversal and shading. Per bounce:
 
 Per-ray vectors are component triples of [B] tensors (ops/vec3.py) and
 RNG draws stay in the reference's order, so a frame matches the JAX
-package's frame sample for sample up to f32 rounding.
+package's frame sample for sample up to f32 rounding. On CUDA tensors the
+shading between the traces runs as two hand-written kernels
+(ops/shade.py, csrc/shade.cu) that equal this PyTorch step bit for bit;
+CPU tensors and impl="plain" take the PyTorch step.
 
 _sample_radiance chooses how a frame's rays go through the bounces, as
 the JAX package does:
@@ -78,11 +81,12 @@ import torch
 
 from ..ops import brdf as B
 from ..ops import sampling as S
+from ..ops import shade as SH
 from ..ops import traversal as ST
 from ..ops import vec3 as V
 from ..ops.envmap import env_pdf_v3, sample_env_direction_v3, sample_env_radiance_v3
 from ..ops.rng import init_seed, rand, rand2
-from ..ops.trace import attr_slot, kernel_supported
+from ..ops.trace import _use_kernel, attr_slot, kernel_supported
 from ..ops.volume import march_volume
 from ..ops.wavefront import (HitRecord, _finalize_hit, wf_trace_any3_v3,
                              wf_trace_any_v3, wf_trace_closest_v3)
@@ -308,7 +312,13 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
     """Factory for ONE path-trace bounce over a flat [n] ray batch:
     bounce_body(bounce: int, state, rec=None, attrs=None, use_attrs=False)
     -> state. env: EnvBuffers when flags.use_env; vol: VolumeBuffers
-    (ops/volume.py) when flags.volume_enabled."""
+    (ops/volume.py) when flags.volume_enabled.
+
+    On CUDA tensors (impl None) the shading between the traces runs as the
+    two kernels of ops/shade.py (fused_body); on CPU tensors and with
+    impl="plain" as the PyTorch step below (bounce_body). Both give the
+    same state on every lane live on entry and the same radiance and ray
+    counts on every lane."""
     if flags.use_env and env is None:
         raise ValueError("flags.use_env is set but no environment was given")
     if flags.volume_enabled and vol is None:
@@ -318,12 +328,9 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
     ambient = V.splat(u.ambient_color)
     stage = _marks()[0]
 
-    def bounce_body(bounce: int, st: PathState, rec=None, attrs=None,
-                    use_attrs=False) -> PathState:
-        """rec (and attrs): this bounce's closest hits when the caller
-        traced them already (bounce 0 of the chunked transports); else the
-        live lanes are traced here, through the attrs kernel when
-        use_attrs."""
+    def extend(bounce: int, st: PathState, rec, attrs, use_attrs):
+        """Counts the bounce's path rays, traces its live lanes unless the
+        caller did (rec), and marches the volume up to the hits."""
         st.nrays = st.nrays + st.alive.sum()
         if rec is None:
             stage("extend", 2)
@@ -334,18 +341,27 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
                                with_attrs=use_attrs, impl=impl)
             if use_attrs:
                 rec, attrs = rec
-        hit = rec.prim_type >= 0
 
         # --- volume march up to the closest hit ---
         if flags.volume_enabled:
             stage("volume", 2)
             vol_rad, st.throughput = march_volume(
-                vol, st.origin, st.direction, torch.where(hit, rec.t, BIG), u.t_min,
-                u.volume_color, u.volume_density, u.volume_opacity, u.volume_step,
+                vol, st.origin, st.direction, torch.where(rec.prim_type >= 0, rec.t, BIG),
+                u.t_min, u.volume_color, u.volume_density, u.volume_opacity, u.volume_step,
                 u.volume_threshold, st.throughput, st.alive, flags.volume_max_steps,
                 impl=impl)
             for c in range(3):
                 st.radiance[c].add_(vol_rad[c])
+        return rec, attrs
+
+    def bounce_body(bounce: int, st: PathState, rec=None, attrs=None,
+                    use_attrs=False) -> PathState:
+        """rec (and attrs): this bounce's closest hits when the caller
+        traced them already (bounce 0 of the chunked transports); else the
+        live lanes are traced here, through the attrs kernel when
+        use_attrs."""
+        rec, attrs = extend(bounce, st, rec, attrs, use_attrs)
+        hit = rec.prim_type >= 0
 
         # --- environment / ambient on miss, MIS against BRDF sampling ---
         stage("env.miss", 2)
@@ -581,7 +597,61 @@ def _make_bounce_step(scene, env, flags, u, n, impl=None, vol=None):
                          last_pdf=last_pdf, alive=alive, nrays=st.nrays,
                          noccl=noccl)
 
-    return bounce_body
+    if not _use_kernel(bias, impl):
+        return bounce_body
+
+    params = SH.shade_params(flags, u)
+    shadow_min = torch.maximum(bias, u.t_min)
+    lights = [i for i in range(3) if flags.light_enabled[i]]
+
+    def fused_body(bounce: int, st: PathState, rec=None, attrs=None,
+                   use_attrs=False) -> PathState:
+        """bounce_body with the shading as kernels: shade_surface, the
+        shadow fan and env NEE's occlusion, shade_scatter. The recorder's
+        parts: extend, volume, shade (shade_surface and the fan), env.nee,
+        sample (shade_scatter)."""
+        rec, attrs = extend(bounce, st, rec, attrs, use_attrs)
+        stage("shade", 2)
+        surf = SH.shade_surface(scene, flags, env, params, bounce, st, rec, attrs)
+        noccl = st.noccl
+        occluded = [None, None, None]
+        shadow_origin = surf.shadow_origin
+        if flags.cast_shadows and lights and _cluster_tracer(flags):
+            masks = surf.fan_masks
+            noccl = noccl + masks.sum()
+            occ3 = wf_trace_any3_v3(scene, shadow_origin, surf.fan_dirs, u.t_min,
+                                    accept_min=shadow_min.expand(n), clip=clip,
+                                    actives=tuple(masks), impl=impl)
+            occluded = [occ3[i] if i in lights else None for i in range(3)]
+        elif flags.cast_shadows and lights:
+            # The enabled lights' rays as one concatenated batch, as bounce_body.
+            m = len(lights)
+            o_cat = tuple(torch.cat([shadow_origin[c]] * m) for c in range(3))
+            d_cat = tuple(torch.cat([surf.fan_dirs[i][c] for i in lights]) for c in range(3))
+            act_cat = torch.cat([surf.fan_masks[i] for i in lights])
+            noccl = noccl + act_cat.sum()
+            occ_cat = _any_hit(scene, flags, o_cat, d_cat, u.t_min, clip,
+                               accept_min=shadow_min.expand(m * n), active=act_cat,
+                               impl=impl)
+            for j, i in enumerate(lights):
+                occluded[i] = occ_cat[j * n:(j + 1) * n]
+        env_occluded = None
+        if flags.use_env:
+            stage("env.nee", 2)
+            noccl = noccl + surf.env_mask.sum()
+            env_occluded = _any_hit(scene, flags, shadow_origin, surf.env_dir, u.t_min, clip,
+                                    t_max=BIG, active=surf.env_mask, divergent=True,
+                                    impl=impl)
+        stage("sample", 2)
+        SH.shade_scatter(flags, env, params, bounce, surf, occluded, env_occluded,
+                         st.radiance)
+        s = surf.state
+        return PathState(seed=surf.seed, origin=(s[0], s[1], s[2]),
+                         direction=(s[3], s[4], s[5]), throughput=(s[6], s[7], s[8]),
+                         radiance=st.radiance, last_pdf=s[9], alive=surf.alive,
+                         nrays=st.nrays, noccl=noccl)
+
+    return fused_body
 
 
 def _sample_lights(flags, u, sn, shade_lane, seed, n):
