@@ -5,7 +5,9 @@
                   program's environment knobs and the limits of its check
   configuration   benchmark/configs/<config>.json: the scene's sizes, its
                   settings and the name of its generator,
-                  benchmark/generators/<generator>.py
+                  benchmark/generators/<generator>.py, the module that
+                  defines the scene kind (generate, program_scene, bounds,
+                  reference_scene: benchmark/README.md)
   traffic         benchmark/traffic/<traffic>.json: the parameters that the
                   one traffic generator (harness/traffic.py) reads
   metric          benchmark/metrics/<metric>.py: a reader, read(ctx) ->
@@ -34,6 +36,7 @@ class Cell:
     traffic: dict
     program_env: dict
     limits: dict
+    kind: object            # the configuration's generator module
 
 
 def load_json(path: Path) -> dict:
@@ -59,7 +62,7 @@ def load_cell(name: str, spec: dict, bench_dir: Path = BENCH_DIR) -> Cell:
     traffic = load_json(bench_dir / "traffic" / f"{entry['traffic']}.json")
     return Cell(name=name, chips=int(entry["chips"]), config=config, traffic=traffic,
                 program_env={k: str(v) for k, v in data.get("program_env", {}).items()},
-                limits=dict(data["limits"]))
+                limits=dict(data["limits"]), kind=load_kind(config["generator"], bench_dir))
 
 
 def _load_module(path: Path, name: str):
@@ -75,7 +78,8 @@ def load_reader(metric: str, bench_dir: Path = BENCH_DIR):
                         f"benchmark_metric_{metric}").read
 
 
-def load_generator(name: str, bench_dir: Path = BENCH_DIR):
-    """generate(config, seed) of benchmark/generators/<name>.py."""
+def load_kind(name: str, bench_dir: Path = BENCH_DIR):
+    """The scene kind benchmark/generators/<name>.py: a module with
+    generate, program_scene, bounds and reference_scene."""
     return _load_module(bench_dir / "generators" / f"{name}.py",
-                        f"benchmark_generator_{name}").generate
+                        f"benchmark_generator_{name}")

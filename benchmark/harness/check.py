@@ -3,11 +3,16 @@ the plain reference at pixels drawn from the seed.
 
 After the window closes, the view shown then is rendered on through the
 same Renderer.render_frame() to its frames_per_view frames, and the
-accumulator holds their running mean. The reference renders those same
-frames (pixel, frame index, camera, settings, sky) at the sampled pixels
-and folds them the same way. Half the sample comes from pixels whose
-centre ray hits a sphere, so that the lit paths, and not the background,
-fill it.
+accumulator holds their running mean. The scene kind's reference scene
+renders those same frames (pixel, frame index, camera, settings, sky) at
+the sampled pixels and folds them the same way. Half the sample comes from
+pixels whose centre ray hits the scene, so that the lit paths, and not the
+background, fill it.
+
+The reference scene is any object with closest(o, d, tmin) (an index per
+ray, >= 0 where it hits), trace_frames(settings, view, width, height, px,
+py, frames), accumulate(colors), lo, hi, device and dtype
+(benchmark/README.md).
 
 A program that rounds otherwise at the same precision sends a path
 elsewhere within a few bounces, so the two images differ by Monte Carlo
@@ -43,7 +48,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..reference import tracer as T
+from ..reference import fmath as M
+from ..reference.camera import View
 
 PIXEL_ATOL = 1e-4
 PIXEL_RTOL = 1e-3
@@ -58,17 +64,17 @@ class Expected(NamedTuple):
     noise: np.ndarray
 
 
-def primary_hits(scene: T.Scene, view: T.View, width: int, height: int, rows, cols):
-    """[n] bool: the ray through each pixel's centre hits a sphere."""
+def primary_hits(scene, view: View, width: int, height: int, rows, cols):
+    """[n] bool: the ray through each pixel's centre hits the scene."""
     dev, dt = scene.device, scene.dtype
     px = torch.as_tensor(cols, device=dev).to(dt)
     py = torch.as_tensor(height - 1 - rows, device=dev).to(dt)
     uvx = (px + 1.0) / float(width) * 2.0 - 1.0
     uvy = (py + 1.0) / float(height) * 2.0 - 1.0
     f, r, u = view.forward, view.right, view.up
-    d = T.M.norm(tuple(float(f[i]) + uvx * float(r[i]) + uvy * float(u[i]) for i in range(3)))
+    d = M.norm(tuple(float(f[i]) + uvx * float(r[i]) + uvy * float(u[i]) for i in range(3)))
     o = tuple(torch.full_like(px, float(view.origin[i])) for i in range(3))
-    _, idx = scene.grid.closest(o, d, torch.full_like(px, view.bias))
+    idx = scene.closest(o, d, torch.full_like(px, view.bias))
     return (idx >= 0).cpu().numpy()
 
 
@@ -99,12 +105,12 @@ def reference_means(scene, settings, view, width, height, rows, cols, counts) ->
     out = []
     for s in range(0, px.shape[0], LANE_BLOCK):
         sl = slice(s, s + LANE_BLOCK)
-        out.append(T.trace_frames(scene, settings, view, width, height, px[sl], py[sl], fr[sl]))
+        out.append(scene.trace_frames(settings, view, width, height, px[sl], py[sl], fr[sl]))
     colors = torch.cat(out).reshape(frames, n, 3)
     out = []
     for k in counts:
         spread = colors[:k].double().std(dim=0, correction=min(1, k - 1))
-        out.append(Expected(T.accumulate(colors[:k]).float().cpu().numpy(),
+        out.append(Expected(scene.accumulate(colors[:k]).float().cpu().numpy(),
                             (spread / math.sqrt(k)).cpu().numpy()))
     return out
 

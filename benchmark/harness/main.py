@@ -4,19 +4,22 @@
 
 Set-up (counted in setup_s, from the start of run.py to the first timed
 frame): the program's import and kernel library, the scene drawn from the
-seed and compiled (span scene_build_s), the sky where the traffic has one,
-the Renderer with the configuration's settings, the first view, and two
-warm frames (the first captures the frame: span capture_s). Then the
-window: frames through Renderer.render_frame() one at a time, the camera
-turning to the next view of the seeded orbit after every frames_per_view
-frames, until --seconds have passed. With --trace 1 the window's first
-profile_frames frames run under torch.profiler and the line carries the
-per-layer metrics instead of the end-to-end ones.
+seed and built by the configuration's scene kind (its generator module,
+benchmark/generators/<generator>.py: span scene_build_s), the sky where
+the traffic has one, the Renderer with the kind's volume and the
+configuration's settings, the first view, and two warm frames (the first
+captures the frame: span capture_s). Then the window: frames through
+Renderer.render_frame() one at a time, the camera turning to the next view
+of the seeded orbit after every frames_per_view frames, until --seconds
+have passed. With --trace 1 the window's first profile_frames frames run
+under torch.profiler and the line carries the per-layer metrics instead of
+the end-to-end ones.
 
 After the window: the device's peak memory is read, the view shown at
 the close is rendered on to its frames_per_view frames (uncounted), the
-image is read back, the program's state is freed, and the plain reference
-renders the sampled pixels of that view's frames (harness/check.py).
+image is read back, the program's state is freed, and the kind's plain
+reference scene renders the sampled pixels of that view's frames
+(harness/check.py).
 
 The last stdout line is the JSON result; the check's numbers and limits
 are the last lines on stderr and the last key of the line.
@@ -37,7 +40,6 @@ from dataclasses import dataclass, field
 import torch
 
 from ..reference import camera as CAM
-from ..reference import tracer as T
 from . import cells as CELLS
 from . import check as CHECK
 from . import traffic as TRAFFIC
@@ -106,22 +108,21 @@ def _set_view(renderer, view: dict) -> None:
 class Program:
     """The program under test, set up for one cell and seed."""
     renderer: object
-    geo: dict
+    geo: object         # what the kind's generate drew from the seed
     orbit: object       # the seeded views after the first
     first: dict         # the first view
     spans: dict
 
 
 def set_up(cell: CELLS.Cell, seed: int, device: str, size=None) -> Program:
-    """The scene drawn from the seed and compiled, the sky, the Renderer
-    with the configuration's settings at the first view, and two warm
-    frames (the first captures), accumulation restarted."""
+    """The scene drawn from the seed and built by the cell's scene kind,
+    the sky, the Renderer with the kind's volume and the configuration's
+    settings at the first view, and two warm frames (the first captures),
+    accumulation restarted."""
     from webgl_raytracer_tpu_torch.env import EnvironmentController
-    from webgl_raytracer_tpu_torch.models import Geometry
     from webgl_raytracer_tpu_torch.render import Renderer
-    from webgl_raytracer_tpu_torch.scene import compile_scene
 
-    cfg, trf = cell.config, cell.traffic
+    cfg, trf, kind = cell.config, cell.traffic, cell.kind
     width, height = size or (int(cfg["width"]), int(cfg["height"]))
 
     def sync():
@@ -129,19 +130,18 @@ def set_up(cell: CELLS.Cell, seed: int, device: str, size=None) -> Program:
             torch.cuda.synchronize()
 
     spans = {}
-    geo = CELLS.load_generator(cfg["generator"])(cfg, seed)
+    geo = kind.generate(cfg, seed)
     t = time.perf_counter()
-    z3 = geo["centers"][:0]
-    scene = compile_scene(Geometry(geo["centers"], geo["radii"], geo["colors"], z3, z3,
-                                   geo["radii"][:0], z3), device=device)
+    scene, volume = kind.program_scene(geo, cfg, device)
     sync()
     spans["scene_build_s"] = time.perf_counter() - t
     env = None
     if trf["sky"] is not None:
         env = EnvironmentController(device=device).load_analytic_sky(dict(trf["sky"]))
-    renderer = Renderer(scene, env=env, width=width, height=height, device=device)
+    renderer = Renderer(scene, env=env, volume=volume, width=width, height=height,
+                        device=device)
     _apply_settings(renderer.settings, cfg["settings"])
-    lo, hi = CAM.sphere_bounds(geo["centers"], geo["radii"])
+    lo, hi = kind.bounds(geo)
     orbit = TRAFFIC.views(trf, float(cfg["fov"]), lo, hi, seed)
     first = next(orbit)
     _set_view(renderer, first)
@@ -237,14 +237,14 @@ def run_cell(cell: CELLS.Cell, spec: dict, seed: int, seconds: float, trace: boo
     return result
 
 
-def reference_scene(cell: CELLS.Cell, geo: dict, device: str, dtype=torch.float32):
-    """The reference's scene and sky, in `dtype`."""
-    return T.Scene(geo["centers"], geo["radii"], geo["colors"], cell.traffic["sky"], device,
-                   dtype)
+def reference_scene(cell: CELLS.Cell, geo, device: str, dtype=torch.float32):
+    """The kind's reference scene of `geo` under the traffic's sky, in
+    `dtype`."""
+    return cell.kind.reference_scene(geo, cell.config, cell.traffic["sky"], device, dtype)
 
 
 def _view(cell, ref, view, width, height):
-    return T.make_view(cell.config["settings"], view, width, height, ref.lo, ref.hi)
+    return CAM.make_view(cell.config["settings"], view, width, height, ref.lo, ref.hi)
 
 
 def sample_pixels(cell, ref, view, width, height, seed):

@@ -1,14 +1,17 @@
-"""The viewer's camera and its camera-relative lights, in float64 numpy.
+"""The viewer's camera and its camera-relative lights, in float64 numpy,
+shared by every scene kind's reference.
 
 The orbit camera is a target, a distance and a rotation quaternion
 (x, y, z, w); its ray basis has right and up prescaled by tan(fov/2) and
 the aspect ratio. The three studio lights point from an azimuth and an
-elevation in that basis.
+elevation in that basis. A View is what one frame's camera and settings
+hand a reference's shader, in float32.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -48,13 +51,6 @@ def view_rotation(azimuth_deg: float, elevation_deg: float):
     right = quat_rotate(yaw, (1.0, 0.0, 0.0))
     q = quat_multiply(quat_axis_angle(right, math.radians(elevation_deg)), yaw)
     return q / np.linalg.norm(q)
-
-
-def sphere_bounds(centers, radii):
-    """The spheres' world AABB as float32 (lo, hi)."""
-    c = np.asarray(centers, np.float32)
-    r = np.asarray(radii, np.float32)[:, None]
-    return (c - r).min(axis=0), (c + r).max(axis=0)
 
 
 def fit_camera(lo, hi, fov: float):
@@ -99,3 +95,24 @@ def light_dirs(lights, forward, right, up) -> np.ndarray:
              + f * (math.cos(el) * math.cos(az)))
         out[i] = d / (np.linalg.norm(d) or 1.0)
     return out
+
+
+@dataclass
+class View:
+    """What one frame's camera and settings hand the shader."""
+    origin: np.ndarray
+    forward: np.ndarray
+    right: np.ndarray
+    up: np.ndarray
+    light_dir: np.ndarray
+    bias: float
+
+
+def make_view(settings: dict, cam: dict, width: int, height: int, lo, hi) -> View:
+    """The View of camera dict `cam` over a scene of bounds (lo, hi)."""
+    origin, fwd, right, up = camera_basis(cam["target"], cam["distance"], cam["rotation"],
+                                          cam["fov"], width, height)
+    return View(origin.astype(np.float32), fwd.astype(np.float32),
+                right.astype(np.float32), up.astype(np.float32),
+                light_dirs(settings["lights"], fwd, right, up),
+                float(np.float32(ray_bias(lo, hi))))

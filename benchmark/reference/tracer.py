@@ -1,5 +1,7 @@
 """The reference transport: the viewer's progressive path tracer for sphere
-scenes, lane by lane.
+scenes, lane by lane. With grid.py it is the sphere kind's reference
+(generators/random_spheres.py); camera.py, fmath.py and sky.py are shared
+with other kinds' references.
 
 Per pixel and frame a PCG stream seeded from (x, y, frame) draws the
 camera jitter, then up to max_bounces bounces: the closest sphere; on a
@@ -19,14 +21,12 @@ else raises.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-
 import numpy as np
 import torch
 
-from . import camera as C
 from . import fmath as M
 from . import sky as S
+from .camera import View
 from .grid import BIG, SphereGrid
 
 PI = math.pi
@@ -57,24 +57,11 @@ def rand(state, dtype, mask=None):
     return new, u
 
 
-@dataclass
-class View:
-    """What one frame's camera and settings hand the shader."""
-    origin: np.ndarray
-    forward: np.ndarray
-    right: np.ndarray
-    up: np.ndarray
-    light_dir: np.ndarray
-    bias: float
-
-
-def make_view(settings: dict, cam: dict, width: int, height: int, lo, hi) -> View:
-    origin, fwd, right, up = C.camera_basis(cam["target"], cam["distance"], cam["rotation"],
-                                            cam["fov"], width, height)
-    return View(origin.astype(np.float32), fwd.astype(np.float32),
-                right.astype(np.float32), up.astype(np.float32),
-                C.light_dirs(settings["lights"], fwd, right, up),
-                float(np.float32(C.ray_bias(lo, hi))))
+def sphere_bounds(centers, radii):
+    """The spheres' world AABB as float32 (lo, hi)."""
+    c = np.asarray(centers, np.float32)
+    r = np.asarray(radii, np.float32)[:, None]
+    return (c - r).min(axis=0), (c + r).max(axis=0)
 
 
 def _check(settings: dict) -> None:
@@ -87,16 +74,30 @@ def _check(settings: dict) -> None:
 
 
 class Scene:
-    """The spheres, their colours and the sky, on `device` in `dtype`."""
+    """The spheres, their colours and the sky, on `device` in `dtype`: the
+    sphere kind's reference scene, with the interface the check reads
+    (closest, trace_frames, accumulate, lo, hi, device, dtype)."""
 
     def __init__(self, centers, radii, colors, sky: dict | None, device,
                  dtype=torch.float32):
         self.grid = SphereGrid(centers, radii, device, dtype)
         self.color = torch.as_tensor(np.asarray(colors, np.float32), device=device).to(dtype)
-        self.lo, self.hi = C.sphere_bounds(centers, radii)
+        self.lo, self.hi = sphere_bounds(centers, radii)
         self.env = None if sky is None else S.Env(S.sky_image(sky, device), dtype)
         self.device = device
         self.dtype = dtype
+
+    def closest(self, o, d, tmin):
+        """[n] index of the closest sphere past tmin, -1 where the ray misses."""
+        return self.grid.closest(o, d, tmin)[1]
+
+    def trace_frames(self, settings: dict, view: View, width: int, height: int,
+                     px, py, frames) -> torch.Tensor:
+        return trace_frames(self, settings, view, width, height, px, py, frames)
+
+    @staticmethod
+    def accumulate(colors: torch.Tensor) -> torch.Tensor:
+        return accumulate(colors)
 
 
 def trace_frames(scene: Scene, settings: dict, view: View, width: int, height: int,

@@ -1,6 +1,6 @@
-"""The control, the reference computed in bfloat16 put in the program's
-place, is not correct by any cell's limits: each cell at 64x64 on the CPU,
-after 1 and 3 frames."""
+"""The control, the kind's reference scene computed in bfloat16 put in the
+program's place, is not correct by any cell's limits: each cell at 64x64 on
+the CPU, after 1 and 3 frames."""
 
 import pytest
 import torch
@@ -9,7 +9,6 @@ from benchmark.harness import cells as CELLS
 from benchmark.harness import check as CHECK
 from benchmark.harness import main as MAIN
 from benchmark.harness import traffic as TRAFFIC
-from benchmark.reference import camera as CAM
 
 SPEC = CELLS.load_spec()
 
@@ -18,8 +17,8 @@ SPEC = CELLS.load_spec()
 def test_control_fails_the_check(name):
     cell = CELLS.load_cell(name, SPEC)
     cfg, seed, size = cell.config, 2**31 + 3, 64
-    geo = CELLS.load_generator(cfg["generator"])(cfg, seed)
-    lo, hi = CAM.sphere_bounds(geo["centers"], geo["radii"])
+    geo = cell.kind.generate(cfg, seed)
+    lo, hi = cell.kind.bounds(geo)
     view = next(TRAFFIC.views(cell.traffic, cfg["fov"], lo, hi, seed))
     ref = MAIN.reference_scene(cell, geo, "cpu")
     low = MAIN.reference_scene(cell, geo, "cpu", torch.bfloat16)

@@ -1,5 +1,6 @@
 """The plain reference against the program's CPU twin, and the reference's
-own parts: its grid against testing every sphere, its sky tables."""
+own parts: the sphere kind's reference scene and its grid against testing
+every sphere, the sky tables."""
 
 import math
 import time
@@ -32,8 +33,10 @@ def test_reference_matches_the_programs_cpu_twin(name):
 
 def test_grid_finds_what_testing_every_sphere_finds():
     cfg = CELLS.load_json(CELLS.BENCH_DIR / "configs" / "spheres1000.json")
-    geo = CELLS.load_generator("random_spheres")(cfg, 3)
-    grid = G.SphereGrid(geo["centers"], geo["radii"], "cpu")
+    kind = CELLS.load_kind(cfg["generator"])
+    geo = kind.generate(cfg, 3)
+    scene = kind.reference_scene(geo, cfg, None, "cpu", torch.float32)
+    grid = scene.grid
     rng = np.random.default_rng(0)
     n = 2000
     pick = rng.integers(0, 1000, n)
@@ -46,10 +49,11 @@ def test_grid_finds_what_testing_every_sphere_finds():
     o = tuple(torch.tensor(origin[:, i], dtype=torch.float32) for i in range(3))
     d = tuple(torch.tensor(direction[:, i], dtype=torch.float32) for i in range(3))
     tmin = torch.full((n,), 1e-3)
-    _, idx = grid.closest(o, d, tmin)
+    idx = scene.closest(o, d, tmin)
     _, want = grid.brute_closest(o, d, tmin)
     assert (idx >= 0).sum() > n // 10
     assert torch.equal(idx, want)
+    assert torch.equal(grid.closest(o, d, tmin)[1], want)
     hit = grid.any_hit(o, d, tmin, tmin, torch.full((n,), G.BIG))
     assert torch.equal(hit, want >= 0)
 

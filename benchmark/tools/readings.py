@@ -7,15 +7,16 @@ For each seed, in one process: the cell's program set up as a run sets it
 up, the first view's frames rendered one at a time through
 Renderer.render_frame() as the window renders them, and the image read at
 the sampled pixels after each frame count in --counts. Then, with the
-program freed, the reference renders the same pixels and frames, and the
-check's numbers are taken at each count: the program's readings. The
-witness, a sound float32 render that rounds otherwise (the reference with
-its camera origin one ulp away, so that paths part within a few bounces
-as they would in a program that rounds otherwise), is put in the
-program's place and read the same way on every seed. For the control
-seeds the control, the reference computed in bfloat16, is read the same
-way. Two faults are read from the program's data: the image left at its
-first frame ("unchanged") and every frame's red channel 5% high ("gain").
+program freed, the reference scene of the cell's scene kind
+(main.reference_scene) renders the same pixels and frames, and the check's
+numbers are taken at each count: the program's readings. The witness, a
+sound float32 render that rounds otherwise (the reference with its camera
+origin one ulp away, so that paths part within a few bounces as they would
+in a program that rounds otherwise), is put in the program's place and
+read the same way on every seed. For the control seeds the control, the
+kind's reference scene computed in bfloat16, is read the same way. Two
+faults are read from the program's data: the image left at its first
+frame ("unchanged") and every frame's red channel 5% high ("gain").
 
 One JSON line a seed on stdout and, with --out, in that file.
 """
