@@ -8,7 +8,9 @@ On the CPU (tier-1):
     live lanes add up to the path rays less the primary misses, eager
     frames (vis, the over-cap redo) are rows of their own, the host spans
     nest, carry set-up's spans and, under a profiler, match its
-    record_function ranges, and export round-trips;
+    record_function ranges, and export round-trips; a molecule's parse
+    and geometry and its SES build are the host spans scene.molecule and
+    scene.ses;
 On the card (marked cuda; the file imports no JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_telemetry.py
   - the recorder's stamps captured in a CUDA graph (and timing events,
@@ -26,8 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+from webgl_raytracer_tpu_torch.app.pipeline import load_molecule_scene
 from webgl_raytracer_tpu_torch.env import EnvironmentController
-from webgl_raytracer_tpu_torch.models import Geometry
+from webgl_raytracer_tpu_torch.models import Geometry, parse_auto_detect
 from webgl_raytracer_tpu_torch.render import Renderer
 from webgl_raytracer_tpu_torch.render import integrator as PI
 from webgl_raytracer_tpu_torch.scene import compile_scene, random_sphere_geometry
@@ -308,6 +311,23 @@ def test_export_round_trips(knobs, tmp_path):
 
 
 # -- on the card ---------------------------------------------------------------
+
+
+def test_molecule_and_ses_spans_with_the_recorder_on():
+    text = "\n".join(
+        f"ATOM  {i + 1:5d}  C   ALA A   1    {x:8.3f}{0.0:8.3f}{0.0:8.3f}  1.00  0.00"
+        f"           C" for i, x in enumerate((0.0, 1.53, 3.06)))
+    rec = telemetry.enable()
+    mol = parse_auto_detect(text, "three.pdb")
+    load_molecule_scene(mol, show_surface=True, surface_resolution=0.7,
+                        surface_atom_mode="all", device="cpu")
+    spans = rec.summary()["spans"]
+    parents = {name: parent for name, parent, _, _ in rec.host_spans}
+    assert mol.num_bonds == 2
+    assert spans["scene.molecule"]["count"] == 2 and spans["scene.molecule"]["clock"] == "host"
+    assert spans["scene.ses"]["count"] == 1 and spans["scene.ses"]["clock"] == "host"
+    assert parents["scene.molecule"] is None and parents["scene.ses"] is None
+    assert parents["scene.compile"] is None
 
 
 @pytest.fixture(scope="module")

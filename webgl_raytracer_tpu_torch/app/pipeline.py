@@ -10,6 +10,10 @@ sheet H-bond cylinders, nitrogen density volume) and compiles the result
 into SceneBuffers on `device` (None: cuda:0, raising without a GPU). The
 volume stays a host DensityVolume; DensityVolume.to_device_buffers puts it
 on the device for the Renderer.
+
+With the recorder on (utils/telemetry.py) the molecule's geometry is the
+host span scene.molecule (as its parse is, models/molecular.py) and the
+SES build the host span scene.ses, beside scene.compile.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..models.mesh import TriangleMesh, merge_meshes
 from ..models.molecular import Geometry, MolData
 from ..models.surface import compute_ses, ses_to_mesh
 from ..scene.compile import SceneBuffers, compile_scene
+from ..utils import telemetry
 
 DISPLAY_STYLES = ("ball-and-stick", "vdw", "stick", "cartoon")
 
@@ -95,18 +100,19 @@ def load_molecule_scene(
     * volume_enabled -> the nitrogen Gaussian density grid (LoadedScene.volume)."""
     log = logger.info if logger else (lambda *_: None)
     opts = get_display_options(display_style, atom_scale, bond_radius)
-    geometry = molecule_to_geometry(
-        mol, radius_scale=opts["radius_scale"], bond_radius=opts["bond_radius"],
-        show_bonds=opts["show_bonds"],
-    )
+    with telemetry.host_span("scene.molecule"):
+        geometry = molecule_to_geometry(
+            mol, radius_scale=opts["radius_scale"], bond_radius=opts["bond_radius"],
+            show_bonds=opts["show_bonds"],
+        )
 
-    std, het = split_by_hetatm(mol)
-    hetero_opts = (dict(radius_scale=0.4, bond_radius=0.12, show_bonds=True)
-                   if display_style == "cartoon"
-                   else dict(radius_scale=opts["radius_scale"],
-                             bond_radius=opts["bond_radius"],
-                             show_bonds=opts["show_bonds"]))
-    hetero_geometry = molecule_to_geometry(het, **hetero_opts)
+        std, het = split_by_hetatm(mol)
+        hetero_opts = (dict(radius_scale=0.4, bond_radius=0.12, show_bonds=True)
+                       if display_style == "cartoon"
+                       else dict(radius_scale=opts["radius_scale"],
+                                 bond_radius=opts["bond_radius"],
+                                 show_bonds=opts["show_bonds"]))
+        hetero_geometry = molecule_to_geometry(het, **hetero_opts)
 
     display_geometry = geometry
     mesh = TriangleMesh()
@@ -128,11 +134,12 @@ def load_molecule_scene(
             log(f"Computing SES surface (probe={probe_radius}A, "
                 f"resolution={surface_resolution}A)...")
             radii = element_radii_array(surface_mol.elements)
-            v, n, idx = compute_ses(
-                surface_mol.positions, radii, probe_radius=probe_radius,
-                resolution=surface_resolution, smooth_normals=smooth_normals,
-                device=device,
-            )
+            with telemetry.host_span("scene.ses"):
+                v, n, idx = compute_ses(
+                    surface_mol.positions, radii, probe_radius=probe_radius,
+                    resolution=surface_resolution, smooth_normals=smooth_normals,
+                    device=device,
+                )
             stats["ses_triangles"] = int(idx.shape[0])
             log(f"SES completed: {idx.shape[0]} triangles")
             if idx.shape[0] > 0:

@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import telemetry
 from .elements import (BOND_COLOR, BOND_RADIUS, ELEMENT_RADII,
                        covalent_radii_array, element_colors_array,
                        element_radii_array)
@@ -165,11 +166,13 @@ def _parse_secondary(line: str, kind: str) -> SecondaryRange | None:
     return SecondaryRange(chain_id, start_seq, start_icode, end_seq, end_icode, end_chain)
 
 
+@telemetry.spanned("scene.molecule")
 def parse_pdb(text: str) -> MolData:
     """Parse PDB text: ATOM/HETATM, CONECT, HELIX, SHEET records.
 
     Column layout per the PDB v3.3 spec, matching molecular.js:60-185.
     Falls back to distance-based bond inference when no CONECT records exist.
+    With the recorder on, a parse is the host span scene.molecule.
     """
     positions: list[tuple[float, float, float]] = []
     elements: list[str] = []
@@ -264,6 +267,7 @@ def parse_pdb(text: str) -> MolData:
     )
 
 
+@telemetry.spanned("scene.molecule")
 def parse_sdf(text: str) -> MolData:
     """Parse an SDF/MOL V2000 block (counts line, atom block, bond block).
 
